@@ -1,0 +1,136 @@
+"""Build the hand-written CUDA kernels with nvcc and load them with ctypes.
+
+Each `<name>.cu` beside this module is compiled on first use into a shared
+library with a plain C interface, for Hopper only
+(`-gencode arch=compute_90a,code=sm_90a`).  The library lands in `_build/`
+beside the sources (listed in `.gitignore`) under a name keyed by a hash of
+the sources, the headers and the flags, so an edited `.cu` rebuilds and an
+unchanged one loads at once.
+
+The launch functions take `tensor.data_ptr()`, sizes and PyTorch's current
+stream as plain integers, launch on that stream without synchronising, and
+return `cudaGetLastError()`; `check` turns a non-zero code into an error.
+A build failure raises with nvcc's stderr.  Nothing here falls back to
+another path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+SOURCE_DIR = Path(__file__).resolve().parent
+BUILD_DIR = SOURCE_DIR / "_build"
+
+#: Hopper only; `-fmad=false` keeps every multiply and add rounded apart
+#: (the kernels also use `_rn` intrinsics).  Never `--use_fast_math`.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false", "--ptxas-options=-v",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LOCK = threading.Lock()
+_LIBS: dict[str, ctypes.CDLL] = {}
+#: nvcc's output (ptxas register and spill report) per built library.
+BUILD_LOGS: dict[str, str] = {}
+
+
+def require_hopper(device: torch.device) -> None:
+    """Raise unless `device` is a CUDA device of compute capability 9.0."""
+    if device.type != "cuda":
+        raise RuntimeError(f"the CUDA kernels need a cuda device, not {device}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the hand-written kernels need an sm_90 "
+            "card")
+    cap = torch.cuda.get_device_capability(device)
+    if cap != (9, 0):
+        raise RuntimeError(
+            f"the kernels are built for sm_90a only; {device} has compute "
+            f"capability {cap[0]}.{cap[1]}")
+
+
+def nvcc_path() -> str:
+    """The nvcc on PATH, else the one under CUDA_HOME; raises if neither."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.access(os.path.join(CUDA_HOME, "bin", "nvcc"), os.X_OK):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
+
+
+def _source_hash(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [SOURCE_DIR / f"{name}.cu", *sorted(SOURCE_DIR.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(name: str, target: Path) -> str:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SOURCE_DIR / f"{name}.cu")]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
+                f"{proc.stderr}")
+        # Atomic: a concurrent process sees the old name or the whole file.
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return proc.stdout + proc.stderr
+
+
+def load(name: str, device: torch.device,
+         signatures: dict[str, list]) -> ctypes.CDLL:
+    """The library built from `<name>.cu`, built first if needed.
+
+    `signatures` maps each launch function to its ctypes argument types;
+    every one returns an int error code.
+    """
+    require_hopper(device)
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is not None:
+            return lib
+        target = BUILD_DIR / f"{name}-{_source_hash(name)}.so"
+        if not target.exists():
+            BUILD_LOGS[name] = _compile(name, target)
+        lib = ctypes.CDLL(str(target))
+        for fn_name, argtypes in signatures.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.gip_error_string.argtypes = [ctypes.c_int]
+        lib.gip_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error."""
+    if code != 0:
+        msg = lib.gip_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
+
+
+def stream_handle(device: torch.device) -> int:
+    """PyTorch's current stream on `device`, as the integer the C side takes."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,90 @@
+// Level-2 Sobel edge magnitude on (H, W*C) interleaved uint8 rows.
+//
+// Replaces the TPU kernels
+//   gpu_image_processing_tpu/ops/pallas/sobel.py::_sobel_kernel_interleaved
+//     (grey images, and colour where the MXU tier is off), and
+//   gpu_image_processing_tpu/ops/pallas/sobel_mxu.py::_sobel_mxu_kernel at
+//     level 2 (colour images on the TPU).
+// The MXU kernel compacts interleaved RGB(A) to grey with a band matmul only
+// because Mosaic has no strided lane load (sobel_mxu.py:3-9).  Here each
+// thread reads its pixels' channels directly.
+//
+// Numerics, per output pixel:
+//   gray = (0.299f*R + 0.587f*G) + 0.114f*B with every product and sum
+//          rounded (C = 1: the value itself), quantized to floor(gray + 0.5);
+//   gx, gy in the term order of sobel.py:209-218;
+//   floor(min(sqrt(gx*gx + gy*gy), 255) + 0.5), 0 on the 1-pixel border
+//   (an image thinner than 3 pixels is all border);
+//   the value goes to every channel, alpha included.
+//
+// Design: one thread per pixel; each recomputes the grey of its 3x3
+// neighbourhood from the interleaved bytes, which L1 serves.  The kernel is
+// bound by memory traffic (one read and one write of the image).  A tile of
+// grey values in shared memory is the next step for speed.
+
+#include "launch.cuh"
+
+namespace {
+
+using gip::quantize_u8;
+
+__device__ __forceinline__ float gray_u8(const uint8_t* __restrict__ px,
+                                         int channels) {
+  if (channels == 1) return static_cast<float>(px[0]);
+  const float g = __fadd_rn(
+      __fadd_rn(__fmul_rn(0.299f, static_cast<float>(px[0])),
+                __fmul_rn(0.587f, static_cast<float>(px[1]))),
+      __fmul_rn(0.114f, static_cast<float>(px[2])));
+  return quantize_u8(g);
+}
+
+__global__ void sobel_l2(const uint8_t* __restrict__ src,
+                         uint8_t* __restrict__ dst, int height, int width,
+                         int channels) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= width) return;
+  const size_t row_bytes = static_cast<size_t>(width) * channels;
+  for (int y = blockIdx.y; y < height; y += gridDim.y) {
+    float mag = 0.0f;
+    if (x >= 1 && x <= width - 2 && y >= 1 && y <= height - 2) {
+      float g[3][3];
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        const uint8_t* row = src + (y + dy - 1) * row_bytes;
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          g[dy][dx] = gray_u8(row + static_cast<size_t>(x + dx - 1) * channels,
+                              channels);
+        }
+      }
+      float gx = __fmul_rn(-1.0f, g[0][0]);
+      gx = __fadd_rn(gx, __fmul_rn(1.0f, g[0][2]));
+      gx = __fadd_rn(gx, __fmul_rn(-2.0f, g[1][0]));
+      gx = __fadd_rn(gx, __fmul_rn(2.0f, g[1][2]));
+      gx = __fadd_rn(gx, __fmul_rn(-1.0f, g[2][0]));
+      gx = __fadd_rn(gx, __fmul_rn(1.0f, g[2][2]));
+      float gy = __fmul_rn(-1.0f, g[0][0]);
+      gy = __fadd_rn(gy, __fmul_rn(-2.0f, g[0][1]));
+      gy = __fadd_rn(gy, __fmul_rn(-1.0f, g[0][2]));
+      gy = __fadd_rn(gy, __fmul_rn(1.0f, g[2][0]));
+      gy = __fadd_rn(gy, __fmul_rn(2.0f, g[2][1]));
+      gy = __fadd_rn(gy, __fmul_rn(1.0f, g[2][2]));
+      const float m = __fsqrt_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)));
+      mag = floorf(__fadd_rn(fminf(m, 255.0f), 0.5f));
+    }
+    const uint8_t out = static_cast<uint8_t>(mag);
+    uint8_t* o = dst + y * row_bytes + static_cast<size_t>(x) * channels;
+    for (int c = 0; c < channels; ++c) o[c] = out;
+  }
+}
+
+}  // namespace
+
+// src, dst: (H, W*C) uint8 with C in {1, 3, 4}.
+extern "C" int gip_sobel_rows(const uint8_t* src, uint8_t* dst, int height,
+                              int width, int channels, void* stream) {
+  sobel_l2<<<gip::rows_grid(width, height), gip::kThreads, 0,
+             static_cast<cudaStream_t>(stream)>>>(src, dst, height, width,
+                                                  channels);
+  return cudaGetLastError();
+}
