@@ -9,17 +9,29 @@ Phases, each of which fails the run on its own:
 
 1. device: CUDA present, compute capability 9.0; prints the card, its power
    limit and the toolchain;
-2. build: builds every kernel of the main path from the sources with nvcc;
-3. kernel vs plain: each kernel against its plain torch version on the card,
-   at small shapes, edge shapes and the full 2146x3239 RGB image; gaussian,
-   box and grey Sobel must agree exactly, colour Sobel within the bound of
-   tests/sobel_tolerance.py; the level-2 API on a small image against the
-   numpy oracle;
-4. main path: the `gpu_filters` API and `run_all_levels` on the full image
-   through FilterRuntime(cuda), with every kernel's launch count read around
-   that run, and a torch.profiler trace that must list the kernels;
-5. times: the API's metrics, and each kernel's CUDA-event time beside its
-   plain version's.
+2. build: builds every library of the main path from the sources, one nvcc
+   per source, all started together;
+3. kernel vs plain: each of the six kernels against its plain torch version
+   on the card, at small shapes, edge shapes and the full 2146x3239 RGB
+   image, gaussian at r in {1, 2, 3, 15, 31}; every kernel must agree
+   exactly, except colour level-2 Sobel, held to the bound of
+   tests/sobel_tolerance.py.  Every launcher also runs on batches (3 small
+   images, 4 full-size ones) at the server's radii, which must equal its
+   plain version on the same batch and its single-image launches;
+   the PNG codec's C++ unfilter helper against its numpy version; and the
+   level-2 API on a small image against the numpy oracle;
+4. API path: the `gpu_filters` API and `run_all_levels` on the full image
+   through FilterRuntime(cuda), with its kernels' launch counts read around
+   that run;
+5. server path: the REST server on 127.0.0.1 in a thread, driven with
+   urllib at full size: /api/process-all and /api/process at level 4 on a
+   PNG filtered row by row as common encoders do it, /api/process-batch
+   with 4 images at levels 2 and 4, an error probe; every
+   kernel's launch count read around that run, each request's wall split
+   into decode, run and encode; a torch.profiler trace that must list
+   every kernel;
+6. times: the API's metrics, and each kernel's CUDA-event time beside its
+   plain version's and its bound.
 
 The line before the last is a JSON object `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`.  Any failure exits non-zero and prints no ok
@@ -28,53 +40,98 @@ line, as does a host without CUDA or a directory without the package.
 
 from __future__ import annotations
 
+import base64
 import json
+import struct
 import subprocess
 import sys
 import time
+import urllib.error
+import urllib.request
+import zlib
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from gpu_image_processing_tpu_torch.api import filters as api
+from gpu_image_processing_tpu_torch.ops import interleaved
 from gpu_image_processing_tpu_torch.ops.cuda import LAUNCHES, blur, build, sobel
 from gpu_image_processing_tpu_torch.ops.weights import (
-    gaussian_kernel_f32, weights_to_torch)
+    bf16_split, gaussian_kernel_f32, weights_to_torch)
 from gpu_image_processing_tpu_torch.runtime.device import describe
 from gpu_image_processing_tpu_torch.runtime.dispatch import FilterRuntime
+from gpu_image_processing_tpu_torch.server.app import create_app
+from gpu_image_processing_tpu_torch.server.http import AppServer
+from gpu_image_processing_tpu_torch.utils.image import (
+    decode_base64_image, host_unfilter, unfilter_native, unfilter_plain)
 from tests import oracle_numpy as oracle
 
 FULL = (2146, 3239, 3)        # the README image (bench.py:34,50-52)
 SHAPES = [(24, 31, 3), (19, 23, 1), (17, 29, 4), (2, 2, 3), (1, 7, 1), FULL]
-GAUSS = [(1, 1.0), (3, 2.0), (15, 8.0), (31, 8.0)]   # (radius, sigma)
+GAUSS = [(1, 1.0), (2, 1.5), (3, 2.0), (15, 8.0), (31, 8.0)]   # (radius, sigma)
 BOX_RADII = [1, 2, 5, 15, 40]
 MAIN_SIGMA, MAIN_GAUSS_RADIUS, MAIN_BOX_RADIUS = 2.0, 3, 5
+FOLDED_RADIUS = 2             # level 4 folds taps below r = 3
 SEED = 1234
 # tests/sobel_tolerance.py: colour Sobel may differ by <= 6 on <= 0.1% of
 # pixels (a grey value on a .5 tie rounds either way under FMA contraction).
 SOBEL_MAX_DIFF, SOBEL_MAX_FRACTION = 6, 1e-3
+# The server's request-body cap (server/http.py::_max_body_bytes).
+BODY_CAP = 64 * 1024 * 1024
 
+# Published peaks of one H100 SXM at 700 W: device memory, float32 outside
+# the tensor cores, and dense bf16 on the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
+
+_BLUR = "gpu_image_processing_tpu_torch/ops/cuda/blur.cu"
+_SOBEL = "gpu_image_processing_tpu_torch/ops/cuda/sobel.cu"
+_TPU = "gpu_image_processing_tpu/ops/pallas/"
 KERNELS = {
     "gaussian_rows": {
-        "source": "gpu_image_processing_tpu_torch/ops/cuda/blur.cu",
-        "replaces": "gpu_image_processing_tpu/ops/pallas/blur.py:212",
-        "also_replaces": [],
-        "profiler_names": ["blur_h<false>", "blur_v<false>"],
+        "source": _BLUR,
+        "replaces": _TPU + "blur.py:212",
+        "also_replaces": [_TPU + "blur.py:985"],
+        "profiler_names": ["blur_h<gip::Weighted>", "blur_v<gip::Weighted>"],
     },
     "box_rows": {
-        "source": "gpu_image_processing_tpu_torch/ops/cuda/blur.cu",
-        "replaces": "gpu_image_processing_tpu/ops/pallas/blur_mxu.py:190",
-        "also_replaces": ["gpu_image_processing_tpu/ops/pallas/blur.py:212"],
-        "profiler_names": ["blur_h<true>", "blur_v<true>"],
+        "source": _BLUR,
+        "replaces": _TPU + "blur_mxu.py:190",
+        "also_replaces": [_TPU + "blur.py:212", _TPU + "blur.py:996",
+                          _TPU + "blur_mxu.py:567"],
+        "profiler_names": ["blur_h<gip::Box>", "blur_v<gip::Box>"],
     },
     "sobel_rows": {
-        "source": "gpu_image_processing_tpu_torch/ops/cuda/sobel.cu",
-        "replaces": "gpu_image_processing_tpu/ops/pallas/sobel_mxu.py:174",
-        "also_replaces": ["gpu_image_processing_tpu/ops/pallas/sobel.py:162"],
-        "profiler_names": ["sobel_l2"],
+        "source": _SOBEL,
+        "replaces": _TPU + "sobel_mxu.py:174",
+        "also_replaces": [_TPU + "sobel.py:162", _TPU + "sobel_mxu.py:299",
+                          _TPU + "sobel.py:289"],
+        "profiler_names": ["sobel_edges<true>"],
+    },
+    "gaussian_folded_rows": {
+        "source": _BLUR,
+        "replaces": _TPU + "blur.py:212",
+        "also_replaces": [_TPU + "blur.py:318", _TPU + "blur.py:985"],
+        "profiler_names": ["blur_h<gip::Folded>", "blur_v<gip::Folded>"],
+    },
+    "gaussian_band_rows": {
+        "source": _BLUR,
+        "replaces": _TPU + "blur_mxu.py:190",
+        "also_replaces": [_TPU + "blur_mxu.py:506", _TPU + "blur_mxu.py:518"],
+        "profiler_names": ["blur_h<gip::Band>", "blur_v<gip::Band>"],
+    },
+    "sobel_f32_rows": {
+        "source": _SOBEL,
+        "replaces": _TPU + "sobel_mxu.py:174",
+        "also_replaces": [_TPU + "sobel.py:162", _TPU + "sobel_mxu.py:364",
+                          _TPU + "sobel_mxu.py:299", _TPU + "sobel.py:289"],
+        "profiler_names": ["sobel_edges<false>"],
     },
 }
+# Kernels of the API path (phase 4); the server path runs all six.
+API_KERNELS = ("gaussian_rows", "box_rows", "sobel_rows")
 
 
 class SmokeFailure(Exception):
@@ -86,10 +143,182 @@ def require(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+def absdiff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a.to(torch.int32) - b.to(torch.int32)).abs()
+
+
+def launchers(dev: torch.device, radius: int, sigma: float, box_radius: int,
+              width: int, channels: int) -> dict:
+    """name -> (kernel, plain) functions of rows, for one parameter set."""
+    table = gaussian_kernel_f32(radius, sigma)
+    w = weights_to_torch(table, dev)
+    hi, lo = (weights_to_torch(t, dev) for t in bf16_split(table))
+    r, br, c = radius, box_radius, channels
+    return {
+        "gaussian_rows": (lambda x: blur.gaussian_rows(x, w, r, c),
+                          lambda x: blur.gaussian_rows_plain(x, w, r, c)),
+        "gaussian_folded_rows": (
+            lambda x: blur.gaussian_folded_rows(x, w, r, c),
+            lambda x: blur.gaussian_folded_rows_plain(x, w, r, c)),
+        "gaussian_band_rows": (
+            lambda x: blur.gaussian_band_rows(x, hi, lo, r, c),
+            lambda x: blur.gaussian_band_rows_plain(x, hi, lo, r, c)),
+        "box_rows": (lambda x: blur.box_rows(x, br, c),
+                     lambda x: blur.box_rows_plain(x, br, c)),
+        "sobel_rows": (lambda x: sobel.sobel_rows(x, width, c),
+                       lambda x: sobel.sobel_rows_plain(x, width, c)),
+        "sobel_f32_rows": (lambda x: sobel.sobel_f32_rows(x, width, c),
+                           lambda x: sobel.sobel_f32_rows_plain(x, width, c)),
+    }
+
+
+def bound(name: str, shape: tuple[int, ...], radius: int) -> tuple[float, str]:
+    """(least time in ms, "bytes" or "operations") for one launch on
+    (..., H, W, C) uint8: each input byte read once and each output byte
+    written once, against the operations the function needs, at the peaks
+    above.  Operations per output element of each pass, 2r+1 taps:
+    weighted 2(2r+1) (a multiply and an add per tap); folded 3r+2 (r pair
+    sums, r+1 multiplies, r+1 adds); band 4(2r+1)+1 (two products and two
+    sums per tap, then hi + lo); box 2r+2 (window adds, counted at the f32
+    rate, and the scale).  Sobel per pixel: 5 for the grey value, 11 each
+    for gx and gy, 8 for the magnitude and rounding.  All at the float32
+    rate, except the band: its products are u8 pixels times bf16 weights,
+    exact in bf16, summed in f32, the band matmul that the TPU ran on its
+    matrix unit, which the card runs on its tensor cores."""
+    elems = int(np.prod(shape))
+    pixels = elems // shape[-1]
+    taps = 2 * radius + 1
+    per_pass = {"gaussian_rows": 2 * taps, "gaussian_folded_rows": 3 * radius + 2,
+                "gaussian_band_rows": 4 * taps + 1, "box_rows": taps + 1}
+    ops = (2 * per_pass[name] * elems if name in per_pass
+           else (5 + 11 + 11 + 8) * pixels)
+    rate = BF16_TENSOR_OPS_PER_S if name == "gaussian_band_rows" else F32_OPS_PER_S
+    bytes_ms = 2 * elems / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / rate * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def scene_image(rng: np.random.Generator) -> np.ndarray:
+    """A full-size RGB scene of the dead-leaves model of natural-image
+    statistics: occluding discs with radii of density r^-3 (3 to 1200
+    pixels), a 1/f texture over them and sensor noise.  Its PNG is about
+    70% of the raw bytes and holds every scanline filter type."""
+    h, w, _ = FULL
+    img = np.empty(FULL, np.float32)
+    img[:] = rng.uniform(0, 255, 3)
+    n = h * w // 145
+    rmin, rmax = 3.0, 1200.0
+    radii = 1 / np.sqrt(1 / rmin**2 - rng.uniform(size=n) * (1 / rmin**2 - 1 / rmax**2))
+    for r, cy, cx, col in zip(radii, rng.uniform(0, h, n), rng.uniform(0, w, n),
+                              rng.uniform(0, 255, (n, 3)).astype(np.float32)):
+        y0, y1 = max(int(cy - r), 0), min(int(cy + r) + 1, h)
+        x0, x1 = max(int(cx - r), 0), min(int(cx + r) + 1, w)
+        yy = np.arange(y0, y1)[:, None] - cy
+        xx = np.arange(x0, x1)[None, :] - cx
+        img[y0:y1, x0:x1][yy * yy + xx * xx <= r * r] = col
+    fy = np.fft.fftfreq(h)[:, None]
+    fx = np.fft.rfftfreq(w)[None, :]
+    f = np.sqrt(fx * fx + fy * fy)
+    f[0, 0] = 1.0
+    spec = (rng.standard_normal(f.shape) + 1j * rng.standard_normal(f.shape)) / f
+    spec[0, 0] = 0
+    texture = np.fft.irfft2(spec, s=(h, w))
+    img += (12 / texture.std() * texture).astype(np.float32)[:, :, None]
+    img += rng.normal(0, 2.0, FULL).astype(np.float32)
+    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
+
+
+def client_png(img: np.ndarray) -> tuple[bytes, dict[int, int]]:
+    """(PNG bytes, rows per filter type) of an (H, W, 3) image as libpng and
+    Pillow write it by default: each row's filter (None, Sub, Up, Average or
+    Paeth) chosen by the least sum of absolute signed residuals, the PNG
+    specification's heuristic, then zlib level 6."""
+    h, w, c = img.shape
+    x = img.reshape(h, w * c).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, c:] = x[:, :-c]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    ul = np.zeros_like(x)
+    ul[1:, c:] = x[:-1, :-c]
+    p = a + b - ul
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, ul))
+    lines = np.empty((h, w * c + 1), np.uint8)
+    best = None
+    for kind, pred in enumerate((0, a, b, (a + b) >> 1, paeth)):
+        res = ((x - pred) & 0xFF).astype(np.uint8)
+        cost = np.abs(res.view(np.int8).astype(np.int32)).sum(axis=1)
+        take = np.ones(h, bool) if best is None else cost < best
+        best = cost if best is None else np.where(take, cost, best)
+        lines[take, 0] = kind
+        lines[take, 1:] = res[take]
+
+    def chunk(kind: bytes, payload: bytes) -> bytes:
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    png = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+           + chunk(b"IDAT", zlib.compress(lines.tobytes(), 6)) + chunk(b"IEND", b""))
+    kinds, counts = np.unique(lines[:, 0], return_counts=True)
+    return png, dict(zip(kinds.tolist(), counts.tolist()))
+
+
+def gradient_image(rng: np.random.Generator, k: int) -> np.ndarray:
+    """A full-size RGB gradient with low noise (2 bits a sample), which
+    compresses far better than a scene, so that four fit the body cap."""
+    h, w, _ = FULL
+    y = np.linspace(0, 1, h, dtype=np.float32)[:, None, None]
+    x = np.linspace(0, 1, w, dtype=np.float32)[None, :, None]
+    slope = np.array([150, 90, -120], np.float32) * (1 + 0.2 * k)
+    base = 40 + 20 * k + x * slope + y * slope[::-1] * 0.5
+    noise = rng.integers(0, 4, FULL)
+    return np.clip(base + noise, 0, 255).astype(np.uint8)
+
+
+class Client:
+    """urllib against the server on 127.0.0.1 (proxies off), with each
+    request's wall and the server's decode/run/encode split."""
+
+    def __init__(self, base: str, card: str):
+        self.base = base
+        self.card = card
+        self.opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+    def _call(self, path: str, body: bytes | None = None) -> tuple[int, dict]:
+        req = urllib.request.Request(
+            self.base + path, data=body,
+            headers={"Content-Type": "application/json"} if body else {})
+        try:
+            with self.opener.open(req, timeout=300) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as err:
+            return err.code, json.loads(err.read())
+
+    def get(self, path: str) -> tuple[int, dict]:
+        return self._call(path)
+
+    def post(self, path: str, payload: dict, label: str) -> tuple[int, dict]:
+        body = json.dumps(payload).encode()
+        before = self._call("/api/stats")[1]["phase_ms"].get(f"POST {path}", {})
+        t0 = time.perf_counter()
+        status, out = self._call(path, body)
+        wall = (time.perf_counter() - t0) * 1000.0
+        after = self._call("/api/stats")[1]["phase_ms"].get(f"POST {path}", {})
+        split = ", ".join(f"{p} {after.get(p, 0.0) - before.get(p, 0.0):.1f}"
+                          for p in ("decode", "run", "encode"))
+        print(f"[{self.card}] request {path} {label}: status {status}, body "
+              f"{len(body) / 1e6:.2f} MB, wall {wall:.1f} ms (server: {split} "
+              f"ms; host clock)")
+        return status, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
 
@@ -112,13 +341,9 @@ def main() -> int:
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    probe = torch.zeros((3, 9), dtype=torch.uint8, device=dev)
-    w3 = weights_to_torch(gaussian_kernel_f32(1, 1.0), dev)
-    blur.gaussian_rows(probe, w3, 1, 3)   # builds blur.cu
-    sobel.sobel_rows(probe, 3, 3)         # builds sobel.cu
-    torch.cuda.synchronize()
-    print(f"build: {time.perf_counter() - t0:.1f} s for blur.cu and sobel.cu "
-          f"(first launch included)")
+    build.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s for "
+          f"{', '.join(build.SOURCES)} (one nvcc each, in parallel)")
     for name, log in build.BUILD_LOGS.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -127,36 +352,72 @@ def main() -> int:
     # -- 3. kernel vs plain -------------------------------------------------
     max_err = {name: 0 for name in KERNELS}
 
-    def absdiff(a, b):
-        return (a.to(torch.int32) - b.to(torch.int32)).abs()
+    def compare(name, got, want, what):
+        diff = absdiff(got, want)
+        d, frac = int(diff.max()), float((diff > 0).float().mean())
+        max_err[name] = max(max_err[name], d)
+        colour_sobel = name == "sobel_rows" and what.endswith(("x3", "x4"))
+        if colour_sobel:
+            require(d <= SOBEL_MAX_DIFF and frac <= SOBEL_MAX_FRACTION,
+                    f"{name} {what}: maxdiff {d}, fraction {frac}")
+        else:
+            require(d == 0, f"{name} {what}: maxdiff {d}")
+        return d
 
     for h, w, c in SHAPES:
         img = rng.integers(0, 256, size=(h, w, c), dtype=np.uint8)
         rows = torch.from_numpy(img.reshape(h, w * c)).to(dev)
-        for radius, sigma in GAUSS:
-            wts = weights_to_torch(gaussian_kernel_f32(radius, sigma), dev)
-            d = int(absdiff(blur.gaussian_rows(rows, wts, radius, c),
-                            blur.gaussian_rows_plain(rows, wts, radius, c)).max())
-            max_err["gaussian_rows"] = max(max_err["gaussian_rows"], d)
-            print(f"compare gaussian {h}x{w}x{c} r={radius} sigma={sigma}: maxdiff {d}")
-            require(d == 0, f"gaussian {h}x{w}x{c} r={radius}: maxdiff {d}")
-        for radius in BOX_RADII:
-            d = int(absdiff(blur.box_rows(rows, radius, c),
-                            blur.box_rows_plain(rows, radius, c)).max())
-            max_err["box_rows"] = max(max_err["box_rows"], d)
-            print(f"compare box {h}x{w}x{c} r={radius}: maxdiff {d}")
-            require(d == 0, f"box {h}x{w}x{c} r={radius}: maxdiff {d}")
-        diff = absdiff(sobel.sobel_rows(rows, w, c),
-                       sobel.sobel_rows_plain(rows, w, c))
-        d, frac = int(diff.max()), float((diff > 0).float().mean())
-        max_err["sobel_rows"] = max(max_err["sobel_rows"], d)
-        print(f"compare sobel {h}x{w}x{c}: maxdiff {d}, fraction {frac:.2e}")
-        if c == 1:
-            require(d == 0, f"grey sobel {h}x{w}: maxdiff {d}")
-        else:
-            require(d <= SOBEL_MAX_DIFF and frac <= SOBEL_MAX_FRACTION,
-                    f"colour sobel {h}x{w}x{c}: maxdiff {d}, fraction {frac}")
+        shape = f"{h}x{w}x{c}"
+        diffs = {}
+        for (radius, sigma), box_radius in zip(GAUSS, BOX_RADII):
+            for name, (kernel, plain) in launchers(
+                    dev, radius, sigma, box_radius, w, c).items():
+                if name.startswith("sobel") and radius != GAUSS[0][0]:
+                    continue
+                r = box_radius if name == "box_rows" else radius
+                diffs[(name, r)] = compare(name, kernel(rows), plain(rows), shape)
+        print(f"compare {shape}: " + ", ".join(
+            f"{n} r={r} {d}" for (n, r), d in diffs.items()))
     torch.cuda.synchronize()
+
+    # Batches at the server's radii (gaussian sigma 2 r=3 at level 2 and in
+    # the band, folded at r=2, box r=5): one launch over (B, H, W*C) equals
+    # the plain version on the same batch and B single-image launches.
+    batch_cases = [(h, w, c, 3) for h, w, c in SHAPES[:-1]] + [(*FULL, 4)]
+    for h, w, c, b in batch_cases:
+        imgs = rng.integers(0, 256, size=(b, h, w * c), dtype=np.uint8)
+        rows = torch.from_numpy(imgs).to(dev)
+        shape = f"{b}x{h}x{w}x{c}"
+        pairs = launchers(dev, MAIN_GAUSS_RADIUS, MAIN_SIGMA, MAIN_BOX_RADIUS, w, c)
+        pairs["gaussian_folded_rows"] = launchers(
+            dev, FOLDED_RADIUS, 1.5, MAIN_BOX_RADIUS, w, c)["gaussian_folded_rows"]
+        diffs = {}
+        for name, (kernel, plain) in pairs.items():
+            out = kernel(rows)
+            diffs[name] = compare(name, out, plain(rows), shape)
+            for i in range(b):
+                require(torch.equal(out[i], kernel(rows[i].contiguous())),
+                        f"{name} batch {shape}: image {i} differs from its "
+                        f"single launch")
+        print(f"batch {shape}: kernel vs plain maxdiff " + ", ".join(
+            f"{n} {d}" for n, d in diffs.items())
+            + "; every image equals its single launch")
+    torch.cuda.synchronize()
+
+    # The PNG codec's C++ unfilter helper against its numpy plain version,
+    # every filter type in turn, 1 to 4 bytes a pixel.
+    for bpp in (1, 2, 3, 4):
+        height, row_bytes = 40, 97 * bpp
+        raw = rng.integers(0, 256, size=(height, row_bytes + 1), dtype=np.uint8)
+        raw[:, 0] = np.arange(height) % 5
+        require(np.array_equal(
+            unfilter_native(raw.reshape(-1), height, row_bytes, bpp),
+            unfilter_plain(raw.reshape(-1), height, row_bytes, bpp)),
+            f"png unfilter helper differs from its plain version at bpp {bpp}")
+    require(host_unfilter() is unfilter_native,
+            "the codec does not decode with the C++ unfilter helper here")
+    print("png unfilter helper == plain for filter types 0-4, bpp 1-4; the "
+          "codec decodes with the helper")
 
     rt = FilterRuntime(dev)
     small = rng.integers(0, 256, size=(24, 31, 3), dtype=np.uint8)
@@ -173,7 +434,7 @@ def main() -> int:
             f"sobel L2 vs numpy oracle: maxdiff {sd.max()}")
     print(f"oracle 24x31x3 level 2: gaussian exact, box exact, sobel maxdiff {sd.max()}")
 
-    # -- 4. main path at full size ----------------------------------------
+    # -- 4. API path at full size -------------------------------------------
     h, w, c = FULL
     image = rng.integers(0, 256, size=FULL, dtype=np.uint8)
     calls = {
@@ -190,10 +451,10 @@ def main() -> int:
     all_levels = {f: rt.run_all_levels(f, image, sigma=MAIN_SIGMA,
                                        radius=radius_of[f]) for f in calls}
     torch.cuda.synchronize()
-    launches = {name: LAUNCHES[name] for name in KERNELS}
-    print(f"main path launches: {launches}")
-    for name, n in launches.items():
-        require(n > 0, f"main path never launched {name}")
+    api_launches = {name: LAUNCHES[name] for name in API_KERNELS}
+    print(f"API path launches: {api_launches}")
+    for name, n in api_launches.items():
+        require(n > 0, f"API path never launched {name}")
 
     for (f, lv), res in results.items():
         require(set(res) == {"image", "time_ms", "bandwidth_gbps", "fps"},
@@ -215,15 +476,157 @@ def main() -> int:
     sd = np.abs(results[("sobel", 2)]["image"].astype(int) - plain)
     require(sd.max() <= SOBEL_MAX_DIFF and (sd > 0).mean() <= SOBEL_MAX_FRACTION,
             f"sobel L2 vs plain L2: maxdiff {sd.max()}")
-    print(f"main path checks: result dicts ok, gaussian/box L2 == L1, "
+    print(f"API path checks: result dicts ok, gaussian/box L2 == L1, "
           f"sobel L2 vs plain maxdiff {sd.max()} fraction {(sd > 0).mean():.2e}")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for f in calls:
-            calls[f](2)
+    # -- 5. server path at full size ----------------------------------------
+    # The single-image requests send a scene PNG filtered row by row as
+    # common encoders write it, so the decode runs Average and Paeth; the
+    # batch sends gradients (also filtered so), the only content whose four
+    # PNGs fit the 64 MB body cap.
+    t0 = time.perf_counter()
+    scene = scene_image(rng)
+    scene_png, scene_filters = client_png(scene)
+    scene_b64 = "data:image/png;base64," + base64.b64encode(scene_png).decode()
+    require(np.array_equal(decode_base64_image(scene_b64), scene),
+            "the scene PNG does not decode to the scene")
+    print(f"scene upload: PNG {len(scene_png) / 1e6:.2f} MB "
+          f"({len(scene_png) / scene.size:.3f} of raw), rows per filter type "
+          f"{scene_filters}")
+    require(scene_filters.get(3, 0) > 0 and scene_filters.get(4, 0) > 0,
+            f"the scene PNG has no Average or Paeth rows: {scene_filters}")
+    grads = [gradient_image(rng, k) for k in range(4)]
+    grad_pngs = [client_png(g) for g in grads]
+    b64s = ["data:image/png;base64," + base64.b64encode(png).decode()
+            for png, _ in grad_pngs]
+    print(f"batch uploads: PNGs {[round(len(png) / 1e6, 2) for png, _ in grad_pngs]}"
+          f" MB, rows per filter type {[f for _, f in grad_pngs]}; "
+          f"{time.perf_counter() - t0:.1f} s to make the uploads")
+    server = AppServer(create_app(rt), "127.0.0.1", 0)
+    server.start_background()
+    try:
+        client = Client(f"http://127.0.0.1:{server.port}", card)
+        status, health = client.get("/api/health")
+        require(status == 200 and health.get("gpu_available") is True,
+                f"/api/health: {status} {health}")
+        status, catalog = client.get("/api/filters")
+        require(status == 200 and set(catalog["filters"]) == {"gaussian", "box", "sobel"},
+                f"/api/filters: {status}")
+
+        pixels = decode_base64_image
+
+        def direct(f: str, lv: int, sigma=MAIN_SIGMA, radius=None,
+                   img=scene) -> np.ndarray:
+            if f == "gaussian":
+                return api.gaussian_blur(img, sigma, radius or MAIN_GAUSS_RADIUS,
+                                         lv, runtime=rt)["image"]
+            if f == "box":
+                return api.box_blur(img, radius or MAIN_BOX_RADIUS, lv,
+                                    runtime=rt)["image"]
+            return api.sobel_edge_detection(img, lv, runtime=rt)["image"]
+
+        params = {"gaussian": {"sigma": MAIN_SIGMA, "radius": MAIN_GAUSS_RADIUS},
+                  "box": {"radius": MAIN_BOX_RADIUS}, "sobel": {}}
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    device_kernels = [e.key for e in events
+        LAUNCHES.clear()
+        served = {}
+        for f in ("gaussian", "box", "sobel"):
+            status, out = client.post(
+                "/api/process-all", {"image": scene_b64, "filter": f, **params[f]},
+                f"{f} {w}x{h}")
+            require(status == 200 and set(out["results"]) == {"level_1", "level_2"},
+                    f"process-all {f}: {status} {str(out)[:200]}")
+            require(out["profiling_available"] is False, "profiling_available")
+            for lv in (1, 2):
+                served[(f, lv)] = pixels(out["results"][f"level_{lv}"]["processed_image"])
+        for f in ("gaussian", "box"):
+            require(np.array_equal(served[(f, 1)], served[(f, 2)]),
+                    f"process-all {f}: level_1 != level_2")
+        level4 = [("gaussian", 2, 1.5), ("gaussian", 3, MAIN_SIGMA),
+                  ("gaussian", 15, 5.0), ("box", MAIN_BOX_RADIUS, None),
+                  ("sobel", None, None)]
+        served4 = {}
+        for f, radius, sigma in level4:
+            payload = {"image": scene_b64, "filter": f, "level": 4}
+            if radius:
+                payload["radius"] = radius
+            if sigma:
+                payload["sigma"] = sigma
+            status, out = client.post("/api/process", payload,
+                                      f"{f} L4 r={radius} {w}x{h}")
+            require(status == 200, f"process {f} L4 r={radius}: {status} {out}")
+            require(out["info"]["level"] == "advanced", f"level name {out['info']}")
+            served4[(f, radius)] = pixels(out["processed_image"])
+        batches = {}
+        for f in ("gaussian", "box", "sobel"):
+            for lv in (2, 4):
+                payload = {"images": b64s, "filter": f, "level": lv, **params[f]}
+                size = len(json.dumps(payload))
+                require(size < BODY_CAP, f"batch body {size} bytes over the cap")
+                status, out = client.post("/api/process-batch", payload,
+                                          f"{f} L{lv} 4x{w}x{h}")
+                require(status == 200 and len(out["processed_images"]) == 4,
+                        f"process-batch {f} L{lv}: {status} {str(out)[:200]}")
+                require(out["metrics"]["batch_size"] == 4, f"batch metrics {out['metrics']}")
+                print(f"[{card}] process-batch {f} L{lv}: time_ms "
+                      f"{out['metrics']['time_ms']:.4f} for 4 images, "
+                      f"images_per_second {out['metrics']['images_per_second']:.1f}")
+                batches[(f, lv)] = [pixels(s) for s in out["processed_images"]]
+                for i, b64 in enumerate(b64s):
+                    status, one = client.post(
+                        "/api/process", {"image": b64, "filter": f, "level": lv,
+                                         **params[f]}, f"{f} L{lv} image {i}")
+                    require(status == 200, f"process {f} L{lv} image {i}: {status}")
+                    require(np.array_equal(pixels(one["processed_image"]),
+                                           batches[(f, lv)][i]),
+                            f"process-batch {f} L{lv}: image {i} differs from "
+                            f"/api/process")
+        status, out = client.post(
+            "/api/process", {"image": b64s[0], "filter": "gaussian", "level": 5},
+            "error probe level 5")
+        require(status == 400 and "Invalid level" in out.get("detail", ""),
+                f"level 5: {status} {out}")
+        torch.cuda.synchronize()
+        server_launches = {name: LAUNCHES[name] for name in KERNELS}
+        status, stats = client.get("/api/stats")
+        require(status == 200, "/api/stats")
+    finally:
+        server.shutdown()
+    print(f"server path launches: {server_launches}")
+    for name, n in server_launches.items():
+        require(n > 0, f"server path never launched {name}")
+    print(f"server phase totals (host clock, ms): {json.dumps(stats['phase_ms'])}")
+
+    # The served pixels against direct calls and the level-2 / plain results.
+    for (f, lv), got in served.items():
+        require(np.array_equal(got, direct(f, lv)),
+                f"process-all {f} level_{lv} differs from the API call")
+    for radius, sigma in ((2, 1.5), (3, MAIN_SIGMA), (15, 5.0)):
+        d = int(np.abs(served4[("gaussian", radius)].astype(int)
+                       - direct("gaussian", 2, sigma, radius)).max())
+        print(f"gaussian L4 r={radius} vs L2 {w}x{h}: maxdiff {d}")
+        require(d <= 1, f"gaussian L4 r={radius}: maxdiff {d} vs level 2")
+    require(np.array_equal(served4[("box", MAIN_BOX_RADIUS)], direct("box", 2)),
+            "box L4 != L2")
+    scene_rows = torch.from_numpy(scene.reshape(h, w * c)).to(dev)
+    sobel_l1 = interleaved.sobel_rows(scene_rows, 1, w, c).cpu().numpy().reshape(FULL)
+    require(np.array_equal(served4[("sobel", None)], sobel_l1),
+            "sobel L4 != the plain level-1 function")
+    for f in ("gaussian", "box", "sobel"):
+        require(np.array_equal(batches[(f, 2)][0], direct(f, 2, img=grads[0])),
+                f"process-batch {f} L2 image 0 differs from the API call")
+    print("server checks: process-all levels equal and equal to the API, level 4 "
+          "within 1 (gaussian) / equal (box, sobel vs plain L1), batches equal "
+          "per-image requests, level 5 -> 400")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for lv in (2, 4):
+            for radius in (FOLDED_RADIUS, MAIN_GAUSS_RADIUS):
+                rt.run("gaussian", scene, level=lv, sigma=MAIN_SIGMA, radius=radius)
+            rt.run("box", scene, level=lv, radius=MAIN_BOX_RADIUS)
+            rt.run("sobel", scene, level=lv)
+        torch.cuda.synchronize()
+    device_kernels = [e.key for e in prof.key_averages()
                       if getattr(e, "device_time_total", 0) > 0]
     for name, spec in KERNELS.items():
         for sub in spec["profiler_names"]:
@@ -231,7 +634,7 @@ def main() -> int:
             require(hits, f"profiler lists no device kernel named {sub}")
             print(f"profiler: {name} -> {hits[0]}")
 
-    # -- 5. times -------------------------------------------------------------
+    # -- 6. times -------------------------------------------------------------
     for (f, lv), res in results.items():
         print(f"[{card}] {f} L{lv} {w}x{h}x{c}: time_ms {res['time_ms']:.4f}, "
               f"bandwidth_gbps {res['bandwidth_gbps']:.2f}, fps {res['fps']:.1f}")
@@ -259,33 +662,47 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / iters
 
-    wts = weights_to_torch(gaussian_kernel_f32(MAIN_GAUSS_RADIUS, MAIN_SIGMA), dev)
-    arms = {
-        "gaussian_rows": (
-            lambda: blur.gaussian_rows(rows, wts, MAIN_GAUSS_RADIUS, c),
-            lambda: blur.gaussian_rows_plain(rows, wts, MAIN_GAUSS_RADIUS, c)),
-        "box_rows": (
-            lambda: blur.box_rows(rows, MAIN_BOX_RADIUS, c),
-            lambda: blur.box_rows_plain(rows, MAIN_BOX_RADIUS, c)),
-        "sobel_rows": (
-            lambda: sobel.sobel_rows(rows, w, c),
-            lambda: sobel.sobel_rows_plain(rows, w, c)),
-    }
-    times = {}
+    main_radius = {"gaussian_rows": MAIN_GAUSS_RADIUS, "box_rows": MAIN_BOX_RADIUS,
+                   "gaussian_folded_rows": FOLDED_RADIUS,
+                   "gaussian_band_rows": MAIN_GAUSS_RADIUS,
+                   "sobel_rows": 1, "sobel_f32_rows": 1}
+    arms = {}
+    for radius, sigma in ((FOLDED_RADIUS, 1.5), (MAIN_GAUSS_RADIUS, MAIN_SIGMA)):
+        for name, pair in launchers(dev, radius, sigma, MAIN_BOX_RADIUS,
+                                    w, c).items():
+            if main_radius[name] == radius or name.startswith(("box", "sobel")):
+                arms.setdefault(name, pair)
+    times, bounds = {}, {}
     for name, (kernel, plain_fn) in arms.items():
         # plain, kernel, kernel, plain: drift hits both arms alike.
-        p1, k1, k2, p2 = (event_ms(plain_fn), event_ms(kernel),
-                          event_ms(kernel), event_ms(plain_fn))
+        fn_k, fn_p = (lambda: kernel(rows)), (lambda: plain_fn(rows))
+        p1, k1, k2, p2 = event_ms(fn_p), event_ms(fn_k), event_ms(fn_k), event_ms(fn_p)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"[{card}] {name} {w}x{h}x{c}: kernel {times[name][0]:.4f} ms "
-              f"({k1:.4f}, {k2:.4f}), plain torch {times[name][1]:.4f} ms "
-              f"({p1:.4f}, {p2:.4f})")
+        bounds[name] = bound(name, FULL, main_radius[name])
+        print(f"[{card}] {name} {w}x{h}x{c} r={main_radius[name]}: kernel "
+              f"{times[name][0]:.4f} ms ({k1:.4f}, {k2:.4f}), plain torch "
+              f"{times[name][1]:.4f} ms ({p1:.4f}, {p2:.4f}), bound "
+              f"{bounds[name][0]:.4f} ms ({bounds[name][1]}), "
+              f"{times[name][0] / bounds[name][0]:.1f}x the bound")
+    # The band at a wide radius.
+    band_k, band_p = launchers(dev, 15, 5.0, MAIN_BOX_RADIUS, w, c)["gaussian_band_rows"]
+    k15 = event_ms(lambda: band_k(rows))
+    b15 = bound("gaussian_band_rows", FULL, 15)
+    print(f"[{card}] gaussian_band_rows {w}x{h}x{c} r=15: kernel {k15:.4f} ms, "
+          f"plain torch {event_ms(lambda: band_p(rows), 5):.4f} ms, bound "
+          f"{b15[0]:.4f} ms ({b15[1]})")
+    print(f"total wall: {time.perf_counter() - t_start:.1f} s")
 
+    # No single PyTorch call computes these functions (the u8 rounding
+    # between the passes, clamp-to-edge and the Rec.601 grey rule), so
+    # library_ms is null for every kernel.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": spec["source"],
          "replaces": spec["replaces"], "also_replaces": spec["also_replaces"],
-         "launches": launches[name], "max_abs_err": max_err[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "launches": server_launches[name], "max_abs_err": max_err[name],
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": None}
         for name, spec in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,128 +1,192 @@
-// Separable gaussian and box blurs on (H, W*C) interleaved uint8 rows.
+// Separable gaussian and box blurs on (B, H, W*C) interleaved uint8 rows.
 //
 // Replaces the TPU kernels
-//   gpu_image_processing_tpu/ops/pallas/blur.py::_blur_kernel (gaussian at
-//     every radius, box at r = 1), and
-//   gpu_image_processing_tpu/ops/pallas/blur_mxu.py::_gauss_mxu_kernel in box
-//     mode (box at r >= 2),
+//   gpu_image_processing_tpu/ops/pallas/blur.py::_blur_kernel: gaussian at
+//     every radius (level 2), gaussian with folded taps (level 4, r < 3), and
+//     box at r = 1;
+//   gpu_image_processing_tpu/ops/pallas/blur_mxu.py::_gauss_mxu_kernel: box
+//     mode (box at r >= 2) and gaussian mode (level 4, r >= 3, bf16 hi + lo
+//     weights);
+//   and the batched rows variants of both (blur.py:985,996,
+//     blur_mxu.py:518,567), where the batch is the grid's z dimension,
 // with what they compute, not how the TPU had to tile it: each pass clamps at
 // the true image edge, a horizontal tap t of lane l reads pixel
-// clamp(l / C + t - r, 0, W - 1) in the same channel, and the horizontal
-// result is quantized to uint8 before the vertical pass reads it.
+// clamp(l / C + t - r, 0, W - 1) in the same channel, a vertical tap clamps
+// within the lane's own image (a batch is never blurred across images), and
+// the horizontal result is quantized to uint8 before the vertical pass reads
+// it.
 //
-// Numerics (bit-exact against the level-1 path):
-//   gaussian: acc = __fadd_rn(acc, __fmul_rn(px, w[t])) in tap order, then
-//             floor(acc + 0.5);
-//   box:      an int32 window sum (exact, so tap order does not matter, the
-//             argument of blur_mxu.py:23-31), then
-//             floor(__fmul_rn((float)sum, 1/taps) + 0.5).
+// Numerics, per pass (bit-exact against the plain versions in
+// ops/interleaved.py):
+//   Weighted (level 2): acc = __fadd_rn(acc, __fmul_rn(px, w[t])) in tap order;
+//   Folded (level 4, r < 3): for t < r, acc += (x[t] + x[2r-t]) * w[t] in t
+//     order, then acc += x[r] * w[r] (blur.py:318-329);
+//   Band (level 4, r >= 3): hi += x * hi[t] and lo += x * lo[t] in tap order,
+//     two accumulators, then hi + lo (blur_mxu.py:247-251,271-282); hi and lo
+//     are exact bf16 values, so every product is exact in f32;
+//   Box (levels 2 and 4): an int32 window sum, exact, so tap order does not
+//     matter (the argument of blur_mxu.py:23-31, and both TPU routes at level
+//     4, the folded box and the box band, are exact too), then
+//     __fmul_rn((float)sum, 1/taps);
+// then floor(acc + 0.5).
 //
 // Design: two launches, one thread per output byte, the uint8 intermediate in
 // device memory.  Each pass reads its 2r+1 taps from L1/L2 and writes one
 // byte, so it is bound by memory traffic (one u8 read and write of the image
-// per pass from device memory, plus cache hits for the taps).  A fused tile
-// with the intermediate in shared memory is the next step for speed.
+// per pass from device memory, plus cache hits for the taps); the band mode
+// doubles the arithmetic and at large radii is bound by it.  A fused tile
+// with the intermediate in shared memory, and for the band a tensor-core
+// product (mma.sync or wgmma, bf16 in, f32 accumulate), are the next steps
+// for speed.
+
+#include <type_traits>
 
 #include "launch.cuh"
+
+namespace gip {
+// Tap orders, as template tags (their names show in profiler traces).
+struct Weighted {};
+struct Folded {};
+struct Band {};
+struct Box {};
+}  // namespace gip
 
 namespace {
 
 using gip::clamp_index;
 using gip::quantize_u8;
 
+// One pass's value from `load(t)`, the u8 value of tap t in [0, 2r].
+template <typename Mode, typename Load>
+__device__ __forceinline__ float taps_value(const Load& load,
+                                            const float* __restrict__ w,
+                                            const float* __restrict__ lo,
+                                            float inv, int radius) {
+  if constexpr (std::is_same_v<Mode, gip::Box>) {
+    int sum = 0;
+    for (int t = 0; t <= 2 * radius; ++t) sum += load(t);
+    return __fmul_rn(static_cast<float>(sum), inv);
+  } else if constexpr (std::is_same_v<Mode, gip::Folded>) {
+    float acc = 0.0f;
+    for (int t = 0; t < radius; ++t) {
+      const float pair = static_cast<float>(load(t) + load(2 * radius - t));
+      acc = __fadd_rn(acc, __fmul_rn(pair, __ldg(w + t)));
+    }
+    return __fadd_rn(acc, __fmul_rn(static_cast<float>(load(radius)),
+                                    __ldg(w + radius)));
+  } else if constexpr (std::is_same_v<Mode, gip::Band>) {
+    float acc_hi = 0.0f;
+    float acc_lo = 0.0f;
+    for (int t = 0; t <= 2 * radius; ++t) {
+      const float px = static_cast<float>(load(t));
+      acc_hi = __fadd_rn(acc_hi, __fmul_rn(px, __ldg(w + t)));
+      acc_lo = __fadd_rn(acc_lo, __fmul_rn(px, __ldg(lo + t)));
+    }
+    return __fadd_rn(acc_hi, acc_lo);
+  } else {
+    float acc = 0.0f;
+    for (int t = 0; t <= 2 * radius; ++t) {
+      acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(load(t)), __ldg(w + t)));
+    }
+    return acc;
+  }
+}
+
 // Horizontal pass: taps step by whole pixels (C lanes), clamped per pixel.
-template <bool kBox>
+// blockIdx.z is the image of the batch.
+template <typename Mode>
 __global__ void blur_h(const uint8_t* __restrict__ src,
-                       uint8_t* __restrict__ dst,
-                       const float* __restrict__ weights, float inv, int radius,
+                       uint8_t* __restrict__ dst, const float* __restrict__ w,
+                       const float* __restrict__ lo, float inv, int radius,
                        int height, int width, int channels) {
   const int lanes = width * channels;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
+  const size_t image = static_cast<size_t>(blockIdx.z) * height * lanes;
+  src += image;
+  dst += image;
   const int pix = lane / channels;
   const int ch = lane - pix * channels;
   for (int y = blockIdx.y; y < height; y += gridDim.y) {
     const uint8_t* row = src + static_cast<size_t>(y) * lanes;
-    float value;
-    if (kBox) {
-      int sum = 0;
-      for (int t = -radius; t <= radius; ++t) {
-        sum += row[clamp_index(pix + t, width) * channels + ch];
-      }
-      value = __fmul_rn(static_cast<float>(sum), inv);
-    } else {
-      float acc = 0.0f;
-      for (int t = 0; t <= 2 * radius; ++t) {
-        const float px = row[clamp_index(pix + t - radius, width) * channels + ch];
-        acc = __fadd_rn(acc, __fmul_rn(px, __ldg(weights + t)));
-      }
-      value = acc;
-    }
-    dst[static_cast<size_t>(y) * lanes + lane] =
-        static_cast<uint8_t>(quantize_u8(value));
+    const auto load = [&](int t) -> int {
+      return row[clamp_index(pix + t - radius, width) * channels + ch];
+    };
+    dst[static_cast<size_t>(y) * lanes + lane] = static_cast<uint8_t>(
+        quantize_u8(taps_value<Mode>(load, w, lo, inv, radius)));
   }
 }
 
-// Vertical pass: taps step by whole rows, clamped per row.
-template <bool kBox>
+// Vertical pass: taps step by whole rows, clamped to the image's own rows.
+// blockIdx.z is the image of the batch.
+template <typename Mode>
 __global__ void blur_v(const uint8_t* __restrict__ src,
-                       uint8_t* __restrict__ dst,
-                       const float* __restrict__ weights, float inv, int radius,
+                       uint8_t* __restrict__ dst, const float* __restrict__ w,
+                       const float* __restrict__ lo, float inv, int radius,
                        int height, int lanes) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
+  const size_t image = static_cast<size_t>(blockIdx.z) * height * lanes;
+  src += image + lane;
+  dst += image;
   for (int y = blockIdx.y; y < height; y += gridDim.y) {
-    float value;
-    if (kBox) {
-      int sum = 0;
-      for (int t = -radius; t <= radius; ++t) {
-        sum += src[static_cast<size_t>(clamp_index(y + t, height)) * lanes + lane];
-      }
-      value = __fmul_rn(static_cast<float>(sum), inv);
-    } else {
-      float acc = 0.0f;
-      for (int t = 0; t <= 2 * radius; ++t) {
-        const float px =
-            src[static_cast<size_t>(clamp_index(y + t - radius, height)) * lanes + lane];
-        acc = __fadd_rn(acc, __fmul_rn(px, __ldg(weights + t)));
-      }
-      value = acc;
-    }
-    dst[static_cast<size_t>(y) * lanes + lane] =
-        static_cast<uint8_t>(quantize_u8(value));
+    const auto load = [&](int t) -> int {
+      return src[static_cast<size_t>(clamp_index(y + t - radius, height)) * lanes];
+    };
+    dst[static_cast<size_t>(y) * lanes + lane] = static_cast<uint8_t>(
+        quantize_u8(taps_value<Mode>(load, w, lo, inv, radius)));
   }
 }
 
-template <bool kBox>
-int separable(const uint8_t* src, uint8_t* tmp, uint8_t* dst,
-              const float* weights, float inv, int radius, int height,
+template <typename Mode>
+int separable(const uint8_t* src, uint8_t* tmp, uint8_t* dst, const float* w,
+              const float* lo, float inv, int radius, int batch, int height,
               int width, int channels, void* stream) {
   const int lanes = width * channels;
-  const dim3 grid = gip::rows_grid(lanes, height);
+  const dim3 grid = gip::rows_grid(lanes, height, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  blur_h<kBox><<<grid, gip::kThreads, 0, s>>>(src, tmp, weights, inv, radius,
+  blur_h<Mode><<<grid, gip::kThreads, 0, s>>>(src, tmp, w, lo, inv, radius,
                                               height, width, channels);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  blur_v<kBox><<<grid, gip::kThreads, 0, s>>>(tmp, dst, weights, inv, radius,
+  blur_v<Mode><<<grid, gip::kThreads, 0, s>>>(tmp, dst, w, lo, inv, radius,
                                               height, lanes);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// weights: (2r+1,) float32 on the device.  tmp and dst: (H, W*C) uint8.
+// src, tmp, dst: (B, H, W*C) uint8.  weights: (2r+1,) float32 on the device.
 extern "C" int gip_gaussian_rows(const uint8_t* src, uint8_t* tmp, uint8_t* dst,
-                                 const float* weights, int radius, int height,
-                                 int width, int channels, void* stream) {
-  return separable<false>(src, tmp, dst, weights, 0.0f, radius, height, width,
-                          channels, stream);
+                                 const float* weights, int radius, int batch,
+                                 int height, int width, int channels,
+                                 void* stream) {
+  return separable<gip::Weighted>(src, tmp, dst, weights, nullptr, 0.0f, radius,
+                                  batch, height, width, channels, stream);
+}
+
+extern "C" int gip_gaussian_folded_rows(const uint8_t* src, uint8_t* tmp,
+                                        uint8_t* dst, const float* weights,
+                                        int radius, int batch, int height,
+                                        int width, int channels, void* stream) {
+  return separable<gip::Folded>(src, tmp, dst, weights, nullptr, 0.0f, radius,
+                                batch, height, width, channels, stream);
+}
+
+// hi, lo: (2r+1,) float32 tables of exact bf16 values, made on the host.
+extern "C" int gip_gaussian_band_rows(const uint8_t* src, uint8_t* tmp,
+                                      uint8_t* dst, const float* hi,
+                                      const float* lo, int radius, int batch,
+                                      int height, int width, int channels,
+                                      void* stream) {
+  return separable<gip::Band>(src, tmp, dst, hi, lo, 0.0f, radius, batch,
+                              height, width, channels, stream);
 }
 
 // inv: the f32 reciprocal 1/(2r+1), computed on the host.
 extern "C" int gip_box_rows(const uint8_t* src, uint8_t* tmp, uint8_t* dst,
-                            float inv, int radius, int height, int width,
-                            int channels, void* stream) {
-  return separable<true>(src, tmp, dst, nullptr, inv, radius, height, width,
-                         channels, stream);
+                            float inv, int radius, int batch, int height,
+                            int width, int channels, void* stream) {
+  return separable<gip::Box>(src, tmp, dst, nullptr, nullptr, inv, radius,
+                             batch, height, width, channels, stream);
 }

@@ -1,10 +1,16 @@
 """The blur kernels of `blur.cu` and their plain torch versions.
 
-`gaussian_rows` replaces the TPU kernel `ops/pallas/blur.py::_blur_kernel`;
-`box_rows` replaces it in box mode and `ops/pallas/blur_mxu.py::
-_gauss_mxu_kernel` in box mode.  Both take (H, W*C) uint8 rows.  On a CPU
-tensor they return the plain version; on a CUDA tensor they launch the
-kernel or raise.
+* `gaussian_rows` replaces the TPU kernel `ops/pallas/blur.py::_blur_kernel`
+  (level 2);
+* `gaussian_folded_rows` replaces it with `folded=True` (level 4, r < 3);
+* `gaussian_band_rows` replaces `ops/pallas/blur_mxu.py::_gauss_mxu_kernel`
+  in gaussian mode (level 4, r >= 3);
+* `box_rows` replaces `_blur_kernel` in box mode and `_gauss_mxu_kernel` in
+  box mode, at levels 2 and 4 (every route is exact).
+
+Each takes (H, W*C) uint8 rows or a (B, H, W*C) batch of them, which one
+launch filters image by image.  On a CPU tensor a wrapper returns the plain
+version; on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -19,42 +25,65 @@ from . import LAUNCHES, build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "gip_gaussian_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "gip_box_rows": [_P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _P],
+    "gip_gaussian_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gip_gaussian_folded_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gip_gaussian_band_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gip_box_rows": [_P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _P],
 }
 
+#: The grid's z dimension, which carries the batch, holds at most this many.
+MAX_BATCH = 65535
 
-def gaussian_rows_plain(rows: torch.Tensor, weights: torch.Tensor,
-                        radius: int, channels: int) -> torch.Tensor:
-    """The kernel's function in plain torch ops (the level-1 numerics)."""
-    return interleaved.gaussian_rows(rows, weights, radius, channels)
-
-
-def box_rows_plain(rows: torch.Tensor, radius: int,
-                   channels: int) -> torch.Tensor:
-    """The kernel's function in plain torch ops (the level-1 numerics)."""
-    return interleaved.box_rows(rows, radius, channels)
+# The plain versions: the kernels' functions in plain torch ops.
+gaussian_rows_plain = interleaved.gaussian_rows
+gaussian_folded_rows_plain = interleaved.gaussian_rows_folded
+gaussian_band_rows_plain = interleaved.gaussian_rows_band
+box_rows_plain = interleaved.box_rows
 
 
-def check_rows(rows: torch.Tensor, channels: int) -> tuple[int, int]:
-    """(height, width) of contiguous (H, W*C) uint8 rows; raises otherwise."""
-    if rows.dtype != torch.uint8 or rows.dim() != 2 or not rows.is_contiguous():
+def check_rows(rows: torch.Tensor, channels: int) -> tuple[int, int, int]:
+    """(batch, height, width) of contiguous (H, W*C) or (B, H, W*C) uint8
+    rows; raises otherwise."""
+    if (rows.dtype != torch.uint8 or rows.dim() not in (2, 3)
+            or not rows.is_contiguous()):
         raise ValueError(
-            f"expected contiguous (H, W*C) uint8 rows; got {rows.dtype} "
-            f"{tuple(rows.shape)}")
-    if channels < 1 or rows.shape[1] % channels:
+            f"expected contiguous (H, W*C) or (B, H, W*C) uint8 rows; got "
+            f"{rows.dtype} {tuple(rows.shape)}")
+    if channels < 1 or rows.shape[-1] % channels:
         raise ValueError(
-            f"row width {rows.shape[1]} is not a multiple of {channels} channels")
-    return rows.shape[0], rows.shape[1] // channels
+            f"row width {rows.shape[-1]} is not a multiple of {channels} "
+            f"channels")
+    batch = rows.shape[0] if rows.dim() == 3 else 1
+    if not 1 <= batch <= MAX_BATCH:
+        raise ValueError(f"batch of {batch} images; one launch takes 1 to "
+                         f"{MAX_BATCH}")
+    return batch, rows.shape[-2], rows.shape[-1] // channels
 
 
-def _launch(fn_name: str, rows: torch.Tensor, *args) -> torch.Tensor:
+def _check_table(table: torch.Tensor, rows: torch.Tensor, radius: int,
+                 name: str) -> None:
+    if (table.device != rows.device or table.dtype != torch.float32
+            or tuple(table.shape) != (2 * radius + 1,)
+            or not table.is_contiguous()):
+        raise ValueError(
+            f"{name} must be a contiguous ({2 * radius + 1},) float32 tensor "
+            f"on {rows.device}")
+
+
+def _launch(fn_name: str, rows: torch.Tensor, channels: int, radius: int,
+            *tables_or_scale) -> torch.Tensor:
+    """Launch one of blur.cu's functions on `rows`: its weight tables (or
+    the box's scale), then radius, batch, height, width, channels."""
+    batch, height, width = check_rows(rows, channels)
+    if radius < 1:
+        raise ValueError(f"radius must be >= 1; got {radius}")
     lib = build.load("blur", rows.device, _SIGNATURES)
     tmp = torch.empty_like(rows)
     out = torch.empty_like(rows)
     with torch.cuda.device(rows.device):
         code = getattr(lib, fn_name)(
-            rows.data_ptr(), tmp.data_ptr(), out.data_ptr(), *args,
+            rows.data_ptr(), tmp.data_ptr(), out.data_ptr(), *tables_or_scale,
+            radius, batch, height, width, channels,
             build.stream_handle(rows.device))
     build.check(lib, code, fn_name)
     return out
@@ -62,33 +91,53 @@ def _launch(fn_name: str, rows: torch.Tensor, *args) -> torch.Tensor:
 
 def gaussian_rows(rows: torch.Tensor, weights: torch.Tensor, radius: int,
                   channels: int) -> torch.Tensor:
-    """Separable gaussian blur of (H, W*C) uint8 rows, level-2 numerics.
+    """Separable gaussian blur, level-2 numerics (taps in order).
 
     `weights` is the (2r+1,) float32 table on the same device as `rows`.
     """
     if rows.device.type == "cpu":
         return gaussian_rows_plain(rows, weights, radius, channels)
-    height, width = check_rows(rows, channels)
-    if (weights.device != rows.device or weights.dtype != torch.float32
-            or tuple(weights.shape) != (2 * radius + 1,)
-            or not weights.is_contiguous()):
-        raise ValueError(
-            f"weights must be a contiguous ({2 * radius + 1},) float32 tensor "
-            f"on {rows.device}")
-    out = _launch("gip_gaussian_rows", rows, weights.data_ptr(), radius,
-                  height, width, channels)
+    _check_table(weights, rows, radius, "weights")
+    out = _launch("gip_gaussian_rows", rows, channels, radius,
+                  weights.data_ptr())
     LAUNCHES["gaussian_rows"] += 1
     return out
 
 
+def gaussian_folded_rows(rows: torch.Tensor, weights: torch.Tensor,
+                         radius: int, channels: int) -> torch.Tensor:
+    """Separable gaussian blur with symmetric tap pairs (level 4, r < 3)."""
+    if rows.device.type == "cpu":
+        return gaussian_folded_rows_plain(rows, weights, radius, channels)
+    _check_table(weights, rows, radius, "weights")
+    out = _launch("gip_gaussian_folded_rows", rows, channels, radius,
+                  weights.data_ptr())
+    LAUNCHES["gaussian_folded_rows"] += 1
+    return out
+
+
+def gaussian_band_rows(rows: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
+                       radius: int, channels: int) -> torch.Tensor:
+    """Separable gaussian blur with bf16 hi + lo weights (level 4, r >= 3).
+
+    `hi`, `lo` are the f32 tables of `ops.weights.bf16_split`, on the same
+    device as `rows`.
+    """
+    if rows.device.type == "cpu":
+        return gaussian_band_rows_plain(rows, hi, lo, radius, channels)
+    _check_table(hi, rows, radius, "hi")
+    _check_table(lo, rows, radius, "lo")
+    out = _launch("gip_gaussian_band_rows", rows, channels, radius,
+                  hi.data_ptr(), lo.data_ptr())
+    LAUNCHES["gaussian_band_rows"] += 1
+    return out
+
+
 def box_rows(rows: torch.Tensor, radius: int, channels: int) -> torch.Tensor:
-    """Separable box blur of (H, W*C) uint8 rows, any radius >= 1."""
+    """Separable box blur, any radius >= 1, exact at levels 2 and 4."""
     if rows.device.type == "cpu":
         return box_rows_plain(rows, radius, channels)
-    height, width = check_rows(rows, channels)
-    if radius < 1:
-        raise ValueError(f"radius must be >= 1; got {radius}")
-    out = _launch("gip_box_rows", rows, float(box_inv_taps_f32(radius)), radius,
-                  height, width, channels)
+    out = _launch("gip_box_rows", rows, channels, radius,
+                  float(box_inv_taps_f32(radius)))
     LAUNCHES["box_rows"] += 1
     return out

@@ -2,9 +2,11 @@
 
 Each `<name>.cu` beside this module is compiled on first use into a shared
 library with a plain C interface, for Hopper only
-(`-gencode arch=compute_90a,code=sm_90a`).  The library lands in `_build/`
-beside the sources (listed in `.gitignore`) under a name keyed by a hash of
-the sources, the headers and the flags, so an edited `.cu` rebuilds and an
+(`-gencode arch=compute_90a,code=sm_90a`).  A `<name>.cpp` is a host helper
+(the PNG unfilter of utils/image.py), built by the same step with nvcc
+driving the host compiler.  The library lands in `_build/` beside the
+sources (listed in `.gitignore`) under a name keyed by a hash of the
+sources, the headers and the flags, so an edited source rebuilds and an
 unchanged one loads at once.
 
 The launch functions take `tensor.data_ptr()`, sizes and PyTorch's current
@@ -23,12 +25,15 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
 SOURCE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SOURCE_DIR / "_build"
+#: Every library the port builds: the kernels, then the host PNG helper.
+SOURCES = ("blur", "sobel", "png_unfilter")
 
 #: Hopper only; `-fmad=false` keeps every multiply and add rounded apart
 #: (the kernels also use `_rn` intrinsics).  Never `--use_fast_math`.
@@ -71,9 +76,15 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
 
 
+def _source(name: str) -> Path:
+    """`<name>.cu`, else the host source `<name>.cpp`."""
+    cu = SOURCE_DIR / f"{name}.cu"
+    return cu if cu.exists() else SOURCE_DIR / f"{name}.cpp"
+
+
 def _source_hash(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [SOURCE_DIR / f"{name}.cu", *sorted(SOURCE_DIR.glob("*.cuh"))]:
+    for path in [_source(name), *sorted(SOURCE_DIR.glob("*.cuh"))]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -83,13 +94,14 @@ def _compile(name: str, target: Path) -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SOURCE_DIR / f"{name}.cu")]
+    source = _source(name)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(source)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
-                f"{proc.stderr}")
+                f"nvcc failed to build {source.name} (exit {proc.returncode}):"
+                f"\n{proc.stderr}")
         # Atomic: a concurrent process sees the old name or the whole file.
         os.replace(tmp, target)
     finally:
@@ -98,30 +110,54 @@ def _compile(name: str, target: Path) -> str:
     return proc.stdout + proc.stderr
 
 
-def load(name: str, device: torch.device,
-         signatures: dict[str, list]) -> ctypes.CDLL:
-    """The library built from `<name>.cu`, built first if needed.
+def _built(name: str) -> Path:
+    """The library of `<name>`, compiled now unless it already exists."""
+    target = BUILD_DIR / f"{name}-{_source_hash(name)}.so"
+    if not target.exists():
+        BUILD_LOGS[name] = _compile(name, target)
+    return target
 
-    `signatures` maps each launch function to its ctypes argument types;
-    every one returns an int error code.
+
+def build_all(names: tuple[str, ...] = SOURCES) -> None:
+    """Compile every library that is not built yet, one nvcc per source,
+    all started together; raises with the first failure's stderr."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        for _ in pool.map(_built, names):
+            pass
+
+
+def load_host(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
+    """The library built from `<name>.cpp` (or `.cu`), built first if
+    needed; raises with nvcc's stderr if the build fails.
+
+    `signatures` maps each function to its ctypes argument types; every one
+    returns an int.
     """
-    require_hopper(device)
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
-        target = BUILD_DIR / f"{name}-{_source_hash(name)}.so"
-        if not target.exists():
-            BUILD_LOGS[name] = _compile(name, target)
-        lib = ctypes.CDLL(str(target))
+        lib = ctypes.CDLL(str(_built(name)))
         for fn_name, argtypes in signatures.items():
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.gip_error_string.argtypes = [ctypes.c_int]
-        lib.gip_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
         return lib
+
+
+def load(name: str, device: torch.device,
+         signatures: dict[str, list]) -> ctypes.CDLL:
+    """The kernel library built from `<name>.cu`, built first if needed.
+
+    `signatures` maps each launch function to its ctypes argument types;
+    every one returns a CUDA error code (see `check`).
+    """
+    require_hopper(device)
+    lib = load_host(name, signatures)
+    lib.gip_error_string.argtypes = [ctypes.c_int]
+    lib.gip_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

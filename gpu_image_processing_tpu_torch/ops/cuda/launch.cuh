@@ -26,8 +26,10 @@ __device__ __forceinline__ int clamp_index(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-inline dim3 rows_grid(int lanes, int height) {
-  return dim3((lanes + kThreads - 1) / kThreads, std::min(height, kMaxGridY));
+// x: lanes, y: rows (looped past kMaxGridY), z: the images of a batch.
+inline dim3 rows_grid(int lanes, int height, int batch) {
+  return dim3((lanes + kThreads - 1) / kThreads, std::min(height, kMaxGridY),
+              batch);
 }
 
 }  // namespace gip

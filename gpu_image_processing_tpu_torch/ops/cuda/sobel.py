@@ -1,11 +1,11 @@
-"""The Sobel kernel of `sobel.cu` and its plain torch version.
+"""The Sobel kernels of `sobel.cu` and their plain torch versions.
 
-`sobel_rows` replaces the TPU kernels `ops/pallas/sobel.py::
-_sobel_kernel_interleaved` and, at level 2, `ops/pallas/sobel_mxu.py::
-_sobel_mxu_kernel`.  It takes (H, W*C) uint8 rows with C in {1, 3, 4} and
-computes the level-2 edge map (grey quantized to uint8 before the
-gradients).  On a CPU tensor it returns the plain version; on a CUDA tensor
-it launches the kernel or raises.
+`sobel_rows` (grey quantized to uint8, level 2) and `sobel_f32_rows` (grey
+kept in f32, the level-1 numerics that level 4 serves) replace the TPU
+kernels `ops/pallas/sobel.py::_sobel_kernel_interleaved` and
+`ops/pallas/sobel_mxu.py::_sobel_mxu_kernel`.  They take (H, W*C) uint8
+rows, or a (B, H, W*C) batch, with C in {1, 3, 4}.  On a CPU tensor they
+return the plain version; on a CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -20,21 +20,27 @@ from . import LAUNCHES, build
 from .blur import check_rows
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"gip_sobel_rows": [_P, _P, _I, _I, _I, _P]}
+_SIGNATURES = {
+    "gip_sobel_rows": [_P, _P, _I, _I, _I, _I, _P],
+    "gip_sobel_f32_rows": [_P, _P, _I, _I, _I, _I, _P],
+}
 
 
 def sobel_rows_plain(rows: torch.Tensor, width: int,
                      channels: int) -> torch.Tensor:
-    """The kernel's function in plain torch ops (level-2 numerics)."""
+    """`sobel_rows` in plain torch ops (level-2 numerics)."""
     return interleaved.sobel_rows(rows, 2, width, channels)
 
 
-def sobel_rows(rows: torch.Tensor, width: int, channels: int) -> torch.Tensor:
-    """Level-2 Sobel edge map of (H, W*C) uint8 rows, written to every
-    channel, with a zeroed 1-pixel border."""
-    if rows.device.type == "cpu":
-        return sobel_rows_plain(rows, width, channels)
-    height, got_width = check_rows(rows, channels)
+def sobel_f32_rows_plain(rows: torch.Tensor, width: int,
+                         channels: int) -> torch.Tensor:
+    """`sobel_f32_rows` in plain torch ops (level-1 numerics)."""
+    return interleaved.sobel_rows(rows, 1, width, channels)
+
+
+def _launch(fn_name: str, rows: torch.Tensor, width: int,
+            channels: int) -> torch.Tensor:
+    batch, height, got_width = check_rows(rows, channels)
     if channels not in VALID_CHANNELS or got_width != width:
         raise ValueError(
             f"expected {width} pixels of C in {VALID_CHANNELS}; got "
@@ -42,9 +48,28 @@ def sobel_rows(rows: torch.Tensor, width: int, channels: int) -> torch.Tensor:
     lib = build.load("sobel", rows.device, _SIGNATURES)
     out = torch.empty_like(rows)
     with torch.cuda.device(rows.device):
-        code = lib.gip_sobel_rows(rows.data_ptr(), out.data_ptr(), height,
-                                  width, channels,
-                                  build.stream_handle(rows.device))
-    build.check(lib, code, "gip_sobel_rows")
+        code = getattr(lib, fn_name)(rows.data_ptr(), out.data_ptr(), batch,
+                                     height, width, channels,
+                                     build.stream_handle(rows.device))
+    build.check(lib, code, fn_name)
+    return out
+
+
+def sobel_rows(rows: torch.Tensor, width: int, channels: int) -> torch.Tensor:
+    """Level-2 Sobel edge map (quantized grey), written to every channel,
+    with a zeroed 1-pixel border on each image."""
+    if rows.device.type == "cpu":
+        return sobel_rows_plain(rows, width, channels)
+    out = _launch("gip_sobel_rows", rows, width, channels)
     LAUNCHES["sobel_rows"] += 1
+    return out
+
+
+def sobel_f32_rows(rows: torch.Tensor, width: int,
+                   channels: int) -> torch.Tensor:
+    """Sobel edge map with the grey value kept in f32 (level 4)."""
+    if rows.device.type == "cpu":
+        return sobel_f32_rows_plain(rows, width, channels)
+    out = _launch("gip_sobel_f32_rows", rows, width, channels)
+    LAUNCHES["sobel_f32_rows"] += 1
     return out

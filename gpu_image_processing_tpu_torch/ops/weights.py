@@ -44,6 +44,17 @@ def box_inv_taps_f32(radius: int) -> np.float32:
     return np.float32(1.0) / np.float32(2 * radius + 1)
 
 
+def bf16_split(weights: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(hi, lo) float32 tables with hi = bf16(w) and lo = bf16(w - hi),
+    both rounded to nearest even (blur_mxu.py:168-187): the weight split of
+    the level-4 band tier.  Every value is an exact bf16, so its product
+    with a u8 pixel is exact in f32."""
+    w = torch.tensor(np.asarray(weights, dtype=np.float32))
+    hi = w.to(torch.bfloat16).to(torch.float32)
+    lo = (w - hi).to(torch.bfloat16).to(torch.float32)
+    return hi.numpy(), lo.numpy()
+
+
 def weights_to_torch(weights: np.ndarray, device: torch.device) -> torch.Tensor:
     """A (2r+1,) float32 weight table as a contiguous tensor on `device`.
 

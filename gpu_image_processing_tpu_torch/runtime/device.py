@@ -1,7 +1,8 @@
 """The explicit device a runtime runs on, and a description of the card.
 
 Nothing here keeps global device state: every runtime object is given its
-`torch.device`.
+`torch.device`.  Nothing picks the CPU because no card was found: the CPU
+is used only where a caller names it.
 """
 
 from __future__ import annotations
@@ -23,11 +24,6 @@ def resolve(device: torch.device | str) -> torch.device:
     elif device.type != "cpu":
         raise RuntimeError(f"unsupported device {device}")
     return device
-
-
-def default_device() -> torch.device:
-    """cuda when a card is present, else cpu."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 def nvidia_smi_name_power(index: int = 0) -> str:

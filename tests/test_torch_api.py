@@ -24,6 +24,13 @@ from gpu_image_processing_tpu_torch.runtime.dispatch import FilterRuntime
 from .conftest import make_image
 from .sobel_tolerance import assert_sobel_close
 
+
+@pytest.fixture(autouse=True)
+def cpu_module_runtime(monkeypatch):
+    """The API's module runtime on the CPU, as a caller asks for it; each
+    test starts from it and leaves the module as it found it."""
+    monkeypatch.setattr(api, "_runtime", FilterRuntime("cpu"))
+
 SHAPES = [(24, 31, 3), (19, 23, 1), (17, 29, 4)]
 KEYS = {"image", "time_ms", "bandwidth_gbps", "fps"}
 CALLS = {
@@ -63,7 +70,22 @@ def test_constants_and_defaults(rng):
     np.testing.assert_array_equal(
         api.gaussian_blur(img, level=api.TEXTURE_MEMORY)["image"],
         api.gaussian_blur(img, level=2)["image"])
-    assert api.RUNTIME.device == torch.device("cpu")
+    assert api.get_runtime().device == torch.device("cpu")
+
+
+def test_module_runtime_targets_cuda_unless_asked(monkeypatch, rng):
+    # Nothing asked for: the first call starts the runtime on the card, and
+    # a host without CUDA raises, naming both ways to ask for the CPU.
+    monkeypatch.setattr(api, "_runtime", None)
+    img = make_image(rng, 8, 8, 3)
+    if torch.cuda.is_available():
+        assert api.get_runtime().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available") as err:
+        api.box_blur(img, 2, 2)
+    assert "runtime=" in str(err.value) and "set_device('cpu')" in str(err.value)
+    assert api.set_device("cpu").device == torch.device("cpu")
+    assert api.box_blur(img, 2, 2)["image"].shape == img.shape
 
 
 @pytest.mark.parametrize("call", [
@@ -83,11 +105,28 @@ def test_same_runtime_errors_as_jax(call):
     assert str(got.value) == str(want.value)
 
 
+@pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("name", list(CALLS))
-def test_level4_raises_not_ported(rng, name):
-    img = make_image(rng, 8, 8, 3)
-    with pytest.raises(RuntimeError, match="level 4 is not ported yet"):
-        CALLS[name](api, img, 4)
+def test_level4_matches_jax(rng, shape, name):
+    # Level 4: gaussian within 1 of the JAX tiers (folded taps below r = 3,
+    # the bf16 band matmul from r = 3: its sum order is XLA's), box exact,
+    # Sobel (f32 grey) within the Sobel bound.
+    img = make_image(rng, *shape)
+    got = CALLS[name](api, img, 4)
+    want = CALLS[name](jax_api, img, 4)
+    assert set(got) == KEYS
+    if name == "gaussian":
+        diff = np.abs(got["image"].astype(int) - want["image"].astype(int))
+        assert diff.max() <= 1
+    else:
+        _assert_filter_close(name, got["image"], want["image"])
+    level2 = CALLS[name](api, img, 2)["image"]
+    if name == "box":
+        np.testing.assert_array_equal(got["image"], level2)
+    elif name == "gaussian":
+        assert np.abs(got["image"].astype(int) - level2.astype(int)).max() <= 1
+    else:
+        np.testing.assert_array_equal(got["image"], CALLS[name](api, img, 1)["image"])
 
 
 @pytest.mark.parametrize("name", list(CALLS))
@@ -116,8 +155,9 @@ def test_jax_run_all_levels_needs_fusion_on_cpu(rng):
 def test_run_all_levels_raises_on_a_bad_level(rng):
     img = make_image(rng, 8, 8, 3)
     rt = FilterRuntime("cpu")
-    with pytest.raises(Exception, match="not ported"):
-        rt.run_all_levels("gaussian", img, levels=(1, 4))
+    with pytest.raises(Exception, match="Level must be"):
+        rt.run_all_levels("gaussian", img, levels=(1, 5))
+    assert set(rt.run_all_levels("gaussian", img, levels=(1, 4))) == {1, 4}
     with pytest.raises(Exception, match="Invalid filter"):
         rt.run_all_levels("median", img)
 
