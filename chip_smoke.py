@@ -11,9 +11,9 @@ Phases, each of which fails the run on its own:
    limit and the toolchain;
 2. build: builds every library of the main path from the sources, one nvcc
    per source, all started together;
-3. kernel vs plain: each of the six kernels against its plain torch version
-   on the card, at small shapes, edge shapes and the full 2146x3239 RGB
-   image, gaussian at r in {1, 2, 3, 15, 31}; every kernel must agree
+3. kernel vs plain: each of the eleven kernels against its plain torch
+   version on the card, at small shapes, edge shapes and the full 2146x3239
+   RGB image, gaussian at r in {1, 2, 3, 15, 31}; every kernel must agree
    exactly, except colour level-2 Sobel, held to the bound of
    tests/sobel_tolerance.py.  Every launcher also runs on batches (3 small
    images, 4 full-size ones) at the server's radii, which must equal its
@@ -26,12 +26,20 @@ Phases, each of which fails the run on its own:
 5. server path: the REST server on 127.0.0.1 in a thread, driven with
    urllib at full size: /api/process-all and /api/process at level 4 on a
    PNG filtered row by row as common encoders do it, /api/process-batch
-   with 4 images at levels 2 and 4, an error probe; every
-   kernel's launch count read around that run, each request's wall split
-   into decode, run and encode; a torch.profiler trace that must list
-   every kernel;
-6. times: the API's metrics, and each kernel's CUDA-event time beside its
-   plain version's and its bound.
+   with 4 images at levels 2 and 4, an error probe; the six rows
+   kernels' launch counts read around that run, each request's wall split
+   into decode, run and encode;
+6. planar path: the models (`GaussianBlur`, `BoxBlur`,
+   `SobelEdgeDetection`, an `nn.Sequential` of two), the six registry
+   keys and `entry()` on the full image on the card, each equal to the
+   interleaved API's result, with the planar kernels' launch counts read
+   around that run (they also run in phase 3 against their plain
+   versions, on batches of 4 full-size images and on row bands with halo
+   rows); then a torch.profiler trace of both paths that must list every
+   kernel;
+7. times: the API's metrics, each kernel's CUDA-event time beside its
+   plain version's and its bound, the fused planar blur against the two
+   launches of `gaussian_rows` on the same planes, and the model's wall.
 
 The line before the last is a JSON object `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`.  Any failure exits non-zero and prints no ok
@@ -54,9 +62,16 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from torch import nn
+
 from gpu_image_processing_tpu_torch.api import filters as api
-from gpu_image_processing_tpu_torch.ops import interleaved
-from gpu_image_processing_tpu_torch.ops.cuda import LAUNCHES, blur, build, sobel
+from gpu_image_processing_tpu_torch.entry import entry
+from gpu_image_processing_tpu_torch.models import (
+    BoxBlur, GaussianBlur, SobelEdgeDetection)
+from gpu_image_processing_tpu_torch.ops import fused, interleaved
+from gpu_image_processing_tpu_torch.ops.cuda import (
+    LAUNCHES, blur, blur_planar, build, sobel, sobel_planar)
+from gpu_image_processing_tpu_torch.ops.cuda import api as planar_api
 from gpu_image_processing_tpu_torch.ops.weights import (
     bf16_split, gaussian_kernel_f32, weights_to_torch)
 from gpu_image_processing_tpu_torch.runtime.device import describe
@@ -71,6 +86,8 @@ FULL = (2146, 3239, 3)        # the README image (bench.py:34,50-52)
 SHAPES = [(24, 31, 3), (19, 23, 1), (17, 29, 4), (2, 2, 3), (1, 7, 1), FULL]
 GAUSS = [(1, 1.0), (2, 1.5), (3, 2.0), (15, 8.0), (31, 8.0)]   # (radius, sigma)
 BOX_RADII = [1, 2, 5, 15, 40]
+PLANAR_BOX_RADII = [1, 2, 5, 15, 31]   # the fused tile takes r <= 31
+BAND_ROWS = (700, 1500)       # a row band of the full image, for the halo modes
 MAIN_SIGMA, MAIN_GAUSS_RADIUS, MAIN_BOX_RADIUS = 2.0, 3, 5
 FOLDED_RADIUS = 2             # level 4 folds taps below r = 3
 SEED = 1234
@@ -88,6 +105,8 @@ BF16_TENSOR_OPS_PER_S = 989e12
 
 _BLUR = "gpu_image_processing_tpu_torch/ops/cuda/blur.cu"
 _SOBEL = "gpu_image_processing_tpu_torch/ops/cuda/sobel.cu"
+_BLUR_PLANAR = "gpu_image_processing_tpu_torch/ops/cuda/blur_planar.cu"
+_SOBEL_PLANAR = "gpu_image_processing_tpu_torch/ops/cuda/sobel_planar.cu"
 _TPU = "gpu_image_processing_tpu/ops/pallas/"
 KERNELS = {
     "gaussian_rows": {
@@ -129,9 +148,43 @@ KERNELS = {
                           _TPU + "sobel_mxu.py:299", _TPU + "sobel.py:289"],
         "profiler_names": ["sobel_edges<false>"],
     },
+    "gaussian_planar": {
+        "source": _BLUR_PLANAR,
+        "replaces": _TPU + "blur.py:664",
+        "also_replaces": [_TPU + "blur.py:212", _TPU + "blur.py:1055"],
+        "profiler_names": ["blur_planar<gip::Weighted>"],
+    },
+    "gaussian_folded_planar": {
+        "source": _BLUR_PLANAR,
+        "replaces": _TPU + "blur.py:664",
+        "also_replaces": [_TPU + "blur.py:318", _TPU + "blur.py:1055"],
+        "profiler_names": ["blur_planar<gip::Folded>"],
+    },
+    "box_planar": {
+        "source": _BLUR_PLANAR,
+        "replaces": _TPU + "blur.py:664",
+        "also_replaces": [_TPU + "blur.py:1075", _TPU + "blur_mxu.py:544"],
+        "profiler_names": ["blur_planar<gip::Box>"],
+    },
+    "sobel_planar": {
+        "source": _SOBEL_PLANAR,
+        "replaces": _TPU + "sobel.py:121",
+        "also_replaces": [_TPU + "sobel.py:143"],
+        "profiler_names": ["sobel_planar<true>"],
+    },
+    "sobel_f32_planar": {
+        "source": _SOBEL_PLANAR,
+        "replaces": _TPU + "sobel.py:121",
+        "also_replaces": [_TPU + "sobel.py:143"],
+        "profiler_names": ["sobel_planar<false>"],
+    },
 }
-# Kernels of the API path (phase 4); the server path runs all six.
+# Kernels of the API path (phase 4); the server path runs the first six.
 API_KERNELS = ("gaussian_rows", "box_rows", "sobel_rows")
+ROWS_KERNELS = tuple(KERNELS)[:6]
+# Kernels of the planar path (phase 6): the five planar launchers and the
+# band, which level-4 gaussian runs on the planes from r = 3.
+PLANAR_KERNELS = tuple(KERNELS)[6:] + ("gaussian_band_rows",)
 
 
 class SmokeFailure(Exception):
@@ -172,6 +225,27 @@ def launchers(dev: torch.device, radius: int, sigma: float, box_radius: int,
     }
 
 
+def planar_launchers(dev: torch.device, radius: int, sigma: float,
+                     box_radius: int) -> dict:
+    """name -> (kernel, plain) functions of (N, H, W) or (B, C, H, W)
+    planes, for one parameter set."""
+    w = weights_to_torch(gaussian_kernel_f32(radius, sigma), dev)
+    r, br = radius, box_radius
+    return {
+        "gaussian_planar": (lambda x: blur_planar.gaussian_planar(x, w, r),
+                            lambda x: blur_planar.gaussian_planar_plain(x, w, r)),
+        "gaussian_folded_planar": (
+            lambda x: blur_planar.gaussian_folded_planar(x, w, r),
+            lambda x: blur_planar.gaussian_folded_planar_plain(x, w, r)),
+        "box_planar": (lambda x: blur_planar.box_planar(x, br),
+                       lambda x: blur_planar.box_planar_plain(x, br)),
+        "sobel_planar": (sobel_planar.sobel_planar,
+                         lambda x: sobel_planar.sobel_planar_plain(x, 2)),
+        "sobel_f32_planar": (sobel_planar.sobel_f32_planar,
+                             lambda x: sobel_planar.sobel_planar_plain(x, 1)),
+    }
+
+
 def bound(name: str, shape: tuple[int, ...], radius: int) -> tuple[float, str]:
     """(least time in ms, "bytes" or "operations") for one launch on
     (..., H, W, C) uint8: each input byte read once and each output byte
@@ -189,7 +263,9 @@ def bound(name: str, shape: tuple[int, ...], radius: int) -> tuple[float, str]:
     pixels = elems // shape[-1]
     taps = 2 * radius + 1
     per_pass = {"gaussian_rows": 2 * taps, "gaussian_folded_rows": 3 * radius + 2,
-                "gaussian_band_rows": 4 * taps + 1, "box_rows": taps + 1}
+                "gaussian_band_rows": 4 * taps + 1, "box_rows": taps + 1,
+                "gaussian_planar": 2 * taps, "gaussian_folded_planar": 3 * radius + 2,
+                "box_planar": taps + 1}
     ops = (2 * per_pass[name] * elems if name in per_pass
            else (5 + 11 + 11 + 8) * pixels)
     rate = BF16_TENSOR_OPS_PER_S if name == "gaussian_band_rows" else F32_OPS_PER_S
@@ -356,7 +432,8 @@ def main() -> int:
         diff = absdiff(got, want)
         d, frac = int(diff.max()), float((diff > 0).float().mean())
         max_err[name] = max(max_err[name], d)
-        colour_sobel = name == "sobel_rows" and what.endswith(("x3", "x4"))
+        colour_sobel = (name in ("sobel_rows", "sobel_planar")
+                        and what.endswith(("x3", "x4")))
         if colour_sobel:
             require(d <= SOBEL_MAX_DIFF and frac <= SOBEL_MAX_FRACTION,
                     f"{name} {what}: maxdiff {d}, fraction {frac}")
@@ -377,6 +454,23 @@ def main() -> int:
                 r = box_radius if name == "box_rows" else radius
                 diffs[(name, r)] = compare(name, kernel(rows), plain(rows), shape)
         print(f"compare {shape}: " + ", ".join(
+            f"{n} r={r} {d}" for (n, r), d in diffs.items()))
+    torch.cuda.synchronize()
+
+    # The planar kernels on the same shapes, as (C, H, W) planes.
+    for h, w, c in SHAPES:
+        img = rng.integers(0, 256, size=(h, w, c), dtype=np.uint8)
+        planes = planar_api.to_planes(torch.from_numpy(img).to(dev))
+        shape = f"{h}x{w}x{c}"
+        diffs = {}
+        for (radius, sigma), box_radius in zip(GAUSS, PLANAR_BOX_RADII):
+            for name, (kernel, plain) in planar_launchers(
+                    dev, radius, sigma, box_radius).items():
+                if name.startswith("sobel") and radius != GAUSS[0][0]:
+                    continue
+                r = box_radius if name == "box_planar" else radius
+                diffs[(name, r)] = compare(name, kernel(planes), plain(planes), shape)
+        print(f"compare planar {shape}: " + ", ".join(
             f"{n} r={r} {d}" for (n, r), d in diffs.items()))
     torch.cuda.synchronize()
 
@@ -403,6 +497,85 @@ def main() -> int:
             f"{n} {d}" for n, d in diffs.items())
             + "; every image equals its single launch")
     torch.cuda.synchronize()
+
+    # The planar batches: 4 full-size images (83 MB) through K5 (12 planes)
+    # and K6, one launch each, against the plain version on the same planes
+    # and against single-image launches.
+    h, w, c = FULL
+    b = 4
+    imgs = torch.from_numpy(rng.integers(0, 256, size=(b, *FULL), dtype=np.uint8)).to(dev)
+    batch_planes = imgs.permute(0, 3, 1, 2).contiguous()      # (B, C, H, W)
+    w3 = weights_to_torch(gaussian_kernel_f32(MAIN_GAUSS_RADIUS, MAIN_SIGMA), dev)
+    w2 = weights_to_torch(gaussian_kernel_f32(FOLDED_RADIUS, 1.5), dev)
+    l2, l4 = planar_api.level2_impls(), planar_api.level4_impls()
+    flat = batch_planes.reshape(b * c, h, w)
+    batch_cases = {
+        "gaussian_planar": (
+            lambda: planar_api.gaussian_planar_batch(imgs, w3, MAIN_GAUSS_RADIUS),
+            lambda: blur_planar.gaussian_planar_plain(flat, w3, MAIN_GAUSS_RADIUS),
+            lambda i: l2["gaussian"](imgs[i], w3, MAIN_GAUSS_RADIUS)),
+        "gaussian_folded_planar": (
+            lambda: planar_api.gaussian_planar_batch(imgs, w2, FOLDED_RADIUS, folded=True),
+            lambda: blur_planar.gaussian_folded_planar_plain(flat, w2, FOLDED_RADIUS),
+            lambda i: l4["gaussian"](imgs[i], w2, FOLDED_RADIUS)),
+        "box_planar": (
+            lambda: planar_api.box_planar_batch(imgs, MAIN_BOX_RADIUS),
+            lambda: blur_planar.box_planar_plain(flat, MAIN_BOX_RADIUS),
+            lambda i: l2["box"](imgs[i], MAIN_BOX_RADIUS)),
+        "sobel_planar": (
+            lambda: planar_api.sobel_planar_batch(imgs, 2),
+            lambda: sobel_planar.sobel_planar_plain(batch_planes, 2),
+            lambda i: l2["sobel"](imgs[i])),
+        "sobel_f32_planar": (
+            lambda: planar_api.sobel_planar_batch(imgs, 1),
+            lambda: sobel_planar.sobel_planar_plain(batch_planes, 1),
+            lambda i: l4["sobel"](imgs[i])),
+    }
+    diffs = {}
+    for name, (batched, plain, single) in batch_cases.items():
+        out = batched()
+        want = plain().reshape(b, c, h, w).permute(0, 2, 3, 1)
+        diffs[name] = compare(name, out, want, f"batch {b}x{h}x{w}x{c}")
+        for i in range(b):
+            require(torch.equal(out[i], single(i)),
+                    f"{name} batch: image {i} differs from its single launch")
+    print(f"planar batch {b}x{h}x{w}x{c}: kernel vs plain maxdiff " + ", ".join(
+        f"{n} {d}" for n, d in diffs.items()) + "; every image equals its single launch")
+
+    # Band modes: rows [BAND_ROWS) of a full-size image, given with their
+    # neighbour rows as halo, equal the same rows of the whole image.
+    planes = planar_api.to_planes(imgs[0])
+    a, z = BAND_ROWS
+    for radius, sigma in ((MAIN_GAUSS_RADIUS, MAIN_SIGMA), (31, 8.0)):
+        wt = weights_to_torch(gaussian_kernel_f32(radius, sigma), dev)
+        band = planes[:, a - radius:z + radius].contiguous()
+        for name, fn, plain in (
+                ("gaussian_planar",
+                 lambda x, **k: blur_planar.gaussian_planar(x, wt, radius, **k),
+                 lambda x: blur_planar.gaussian_planar_plain(x, wt, radius, True)),
+                ("gaussian_folded_planar",
+                 lambda x, **k: blur_planar.gaussian_folded_planar(x, wt, radius, **k),
+                 lambda x: blur_planar.gaussian_folded_planar_plain(x, wt, radius, True)),
+                ("box_planar",
+                 lambda x, **k: blur_planar.box_planar(x, radius, **k),
+                 lambda x: blur_planar.box_planar_plain(x, radius, True))):
+            got = fn(band, rows_prepadded=True)
+            compare(name, got, plain(band), f"band r={radius}")
+            require(torch.equal(got, fn(planes)[:, a:z]),
+                    f"{name} band r={radius}: differs from the whole image's rows")
+    band = planes[None, :, a - 1:z + 1].contiguous()
+    for name, fn, level in (("sobel_planar", sobel_planar.sobel_planar, 2),
+                            ("sobel_f32_planar", sobel_planar.sobel_f32_planar, 1)):
+        got = fn(band, rows_prepadded=True, zero_rows=False)
+        compare(name, got, sobel_planar.sobel_planar_plain(band, level, True, False),
+                f"band {z - a}x{w}x{c}")
+        require(torch.equal(got[0], fn(planes)[:, a:z]),
+                f"{name} band: differs from the whole image's rows")
+    torch.cuda.synchronize()
+    print(f"planar band rows {a}-{z} of {h}x{w}x{c} with halo rows: gaussian, folded "
+          f"and box at r=3 and 31, Sobel (zero_rows=False) at both levels equal "
+          f"the whole image's rows and their plain versions")
+    del imgs, batch_planes, flat, band
 
     # The PNG codec's C++ unfilter helper against its numpy plain version,
     # every filter type in turn, 1 to 4 bytes a pixel.
@@ -587,7 +760,7 @@ def main() -> int:
         require(status == 400 and "Invalid level" in out.get("detail", ""),
                 f"level 5: {status} {out}")
         torch.cuda.synchronize()
-        server_launches = {name: LAUNCHES[name] for name in KERNELS}
+        server_launches = {name: LAUNCHES[name] for name in ROWS_KERNELS}
         status, stats = client.get("/api/stats")
         require(status == 200, "/api/stats")
     finally:
@@ -619,12 +792,102 @@ def main() -> int:
           "within 1 (gaussian) / equal (box, sobel vs plain L1), batches equal "
           "per-image requests, level 5 -> 400")
 
+    # -- 6. planar path at full size ------------------------------------------
+    # The models, the registry and the flagship entry on (H, W, C) tensors on
+    # the card, each against the interleaved API on the same image: forward
+    # at levels 2 and 4 is the level-2 function, the "_adv" keys level 4.
+    image_t = torch.from_numpy(image).to(dev)
+    rgba = rng.integers(0, 256, size=(h, w, 4), dtype=np.uint8)
+    registry: dict = {}
+    fused.register_all(registry.__setitem__)
+    w15 = weights_to_torch(gaussian_kernel_f32(15, 5.0), dev)
+    pipeline = nn.Sequential(GaussianBlur(MAIN_SIGMA, MAIN_GAUSS_RADIUS, 2),
+                             SobelEdgeDetection(2)).to(dev)
+    forward, (entry_img, entry_w) = entry(dev)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    planar = {
+        "GaussianBlur L1": GaussianBlur(MAIN_SIGMA, MAIN_GAUSS_RADIUS, 1).to(dev)(image_t),
+        "GaussianBlur L2": GaussianBlur(MAIN_SIGMA, MAIN_GAUSS_RADIUS, 2).to(dev)(image_t),
+        "GaussianBlur L4": GaussianBlur(MAIN_SIGMA, MAIN_GAUSS_RADIUS, 4).to(dev)(image_t),
+        "BoxBlur r=5": BoxBlur(MAIN_BOX_RADIUS, 2)(image_t),
+        "BoxBlur r=40": BoxBlur(40, 2)(image_t),
+        "SobelEdgeDetection L1": SobelEdgeDetection(1)(image_t),
+        "SobelEdgeDetection L2": SobelEdgeDetection(2)(image_t),
+        "gaussian": registry["gaussian"](image_t, w3, MAIN_GAUSS_RADIUS),
+        "gaussian_adv r=2": registry["gaussian_adv"](image_t, w2, FOLDED_RADIUS),
+        "gaussian_adv r=15": registry["gaussian_adv"](image_t, w15, 15),
+        "box": registry["box"](image_t, MAIN_BOX_RADIUS),
+        "box_adv": registry["box_adv"](image_t, MAIN_BOX_RADIUS),
+        "sobel": registry["sobel"](image_t),
+        "sobel_adv": registry["sobel_adv"](image_t),
+        "Sequential(GaussianBlur, Sobel)": pipeline(image_t),
+        "SobelEdgeDetection L2 RGBA": SobelEdgeDetection(2)(torch.from_numpy(rgba).to(dev)),
+    }
+    entry_out = forward(entry_img, entry_w)
+    torch.cuda.synchronize()
+    planar_wall = (time.perf_counter() - t0) * 1000.0
+    planar_launches = {name: LAUNCHES[name] for name in PLANAR_KERNELS}
+    print(f"planar path launches: {planar_launches} ({len(planar) + 1} calls "
+          f"in {planar_wall:.1f} ms, host clock)")
+    for name, n in planar_launches.items():
+        require(n > 0, f"planar path never launched {name}")
+
+    gauss_l2 = results[("gaussian", 2)]["image"]
+    sobel_l2 = results[("sobel", 2)]["image"]
+    want = {
+        "GaussianBlur L1": results[("gaussian", 1)]["image"],
+        "GaussianBlur L2": gauss_l2,
+        "GaussianBlur L4": gauss_l2,
+        "BoxBlur r=5": results[("box", 2)]["image"],
+        "BoxBlur r=40": api.box_blur(image, 40, 2, runtime=rt)["image"],
+        "SobelEdgeDetection L1": results[("sobel", 1)]["image"],
+        "SobelEdgeDetection L2": sobel_l2,
+        "gaussian": gauss_l2,
+        "gaussian_adv r=2": api.gaussian_blur(image, 1.5, FOLDED_RADIUS, 4, runtime=rt)["image"],
+        "gaussian_adv r=15": api.gaussian_blur(image, 5.0, 15, 4, runtime=rt)["image"],
+        "box": results[("box", 2)]["image"],
+        "box_adv": api.box_blur(image, MAIN_BOX_RADIUS, 4, runtime=rt)["image"],
+        "sobel": sobel_l2,
+        "sobel_adv": api.sobel_edge_detection(image, 4, runtime=rt)["image"],
+        "Sequential(GaussianBlur, Sobel)": api.sobel_edge_detection(
+            gauss_l2, 2, runtime=rt)["image"],
+        "SobelEdgeDetection L2 RGBA": api.sobel_edge_detection(rgba, 2, runtime=rt)["image"],
+    }
+    # Colour Sobel with the quantized grey, held to its tolerance.
+    colour_sobel_l2 = {"SobelEdgeDetection L2", "sobel",
+                           "Sequential(GaussianBlur, Sobel)",
+                           "SobelEdgeDetection L2 RGBA"}
+    diffs = {}
+    for key, got in planar.items():
+        got = got.cpu().numpy()
+        require(got.shape == want[key].shape and got.dtype == np.uint8,
+                f"planar {key}: {got.shape} {got.dtype}")
+        d = np.abs(got.astype(int) - want[key])
+        diffs[key] = int(d.max())
+        if key in colour_sobel_l2:
+            require(d.max() <= SOBEL_MAX_DIFF and (d > 0).mean() <= SOBEL_MAX_FRACTION,
+                    f"planar {key} vs API: maxdiff {d.max()}")
+        else:
+            require(d.max() == 0, f"planar {key} vs API: maxdiff {d.max()}")
+    require(torch.equal(entry_out, fused.gaussian_fused(entry_img, entry_w, 3)),
+            "entry() on the card differs from its plain version")
+    print(f"planar path vs the interleaved API at {w}x{h}: maxdiff " + ", ".join(
+        f"{k} {d}" for k, d in diffs.items()) + f"; entry() {tuple(entry_out.shape)} "
+        f"equals its plain version")
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for lv in (2, 4):
             for radius in (FOLDED_RADIUS, MAIN_GAUSS_RADIUS):
                 rt.run("gaussian", scene, level=lv, sigma=MAIN_SIGMA, radius=radius)
             rt.run("box", scene, level=lv, radius=MAIN_BOX_RADIUS)
             rt.run("sobel", scene, level=lv)
+        registry["gaussian"](image_t, w3, MAIN_GAUSS_RADIUS)
+        registry["gaussian_adv"](image_t, w2, FOLDED_RADIUS)
+        registry["box"](image_t, MAIN_BOX_RADIUS)
+        registry["sobel"](image_t)
+        registry["sobel_adv"](image_t)
         torch.cuda.synchronize()
     device_kernels = [e.key for e in prof.key_averages()
                       if getattr(e, "device_time_total", 0) > 0]
@@ -634,7 +897,7 @@ def main() -> int:
             require(hits, f"profiler lists no device kernel named {sub}")
             print(f"profiler: {name} -> {hits[0]}")
 
-    # -- 6. times -------------------------------------------------------------
+    # -- 7. times -------------------------------------------------------------
     for (f, lv), res in results.items():
         print(f"[{card}] {f} L{lv} {w}x{h}x{c}: time_ms {res['time_ms']:.4f}, "
               f"bandwidth_gbps {res['bandwidth_gbps']:.2f}, fps {res['fps']:.1f}")
@@ -673,17 +936,21 @@ def main() -> int:
             if main_radius[name] == radius or name.startswith(("box", "sobel")):
                 arms.setdefault(name, pair)
     times, bounds = {}, {}
-    for name, (kernel, plain_fn) in arms.items():
+
+    def time_kernel(name, kernel, plain_fn, x, radius):
         # plain, kernel, kernel, plain: drift hits both arms alike.
-        fn_k, fn_p = (lambda: kernel(rows)), (lambda: plain_fn(rows))
+        fn_k, fn_p = (lambda: kernel(x)), (lambda: plain_fn(x))
         p1, k1, k2, p2 = event_ms(fn_p), event_ms(fn_k), event_ms(fn_k), event_ms(fn_p)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        bounds[name] = bound(name, FULL, main_radius[name])
-        print(f"[{card}] {name} {w}x{h}x{c} r={main_radius[name]}: kernel "
+        bounds[name] = bound(name, FULL, radius)
+        print(f"[{card}] {name} {w}x{h}x{c} r={radius}: kernel "
               f"{times[name][0]:.4f} ms ({k1:.4f}, {k2:.4f}), plain torch "
               f"{times[name][1]:.4f} ms ({p1:.4f}, {p2:.4f}), bound "
               f"{bounds[name][0]:.4f} ms ({bounds[name][1]}), "
               f"{times[name][0] / bounds[name][0]:.1f}x the bound")
+
+    for name, (kernel, plain_fn) in arms.items():
+        time_kernel(name, kernel, plain_fn, rows, main_radius[name])
     # The band at a wide radius.
     band_k, band_p = launchers(dev, 15, 5.0, MAIN_BOX_RADIUS, w, c)["gaussian_band_rows"]
     k15 = event_ms(lambda: band_k(rows))
@@ -691,6 +958,65 @@ def main() -> int:
     print(f"[{card}] gaussian_band_rows {w}x{h}x{c} r=15: kernel {k15:.4f} ms, "
           f"plain torch {event_ms(lambda: band_p(rows), 5):.4f} ms, bound "
           f"{b15[0]:.4f} ms ({b15[1]})")
+    # The planar kernels on the (3, H, W) planes of the same image.
+    planes_full = planar_api.to_planes(image_t)
+    planar_radius = {"gaussian_planar": MAIN_GAUSS_RADIUS,
+                     "gaussian_folded_planar": FOLDED_RADIUS,
+                     "box_planar": MAIN_BOX_RADIUS, "sobel_planar": 1,
+                     "sobel_f32_planar": 1}
+    planar_arms = planar_launchers(dev, MAIN_GAUSS_RADIUS, MAIN_SIGMA, MAIN_BOX_RADIUS)
+    planar_arms["gaussian_folded_planar"] = planar_launchers(
+        dev, FOLDED_RADIUS, 1.5, MAIN_BOX_RADIUS)["gaussian_folded_planar"]
+    for name, (kernel, plain_fn) in planar_arms.items():
+        time_kernel(name, kernel, plain_fn, planes_full, planar_radius[name])
+    # The batch forms: 4 full-size images in one launch, K6 on (4, 3, H, W)
+    # and K5 on their 12 planes.
+    batch4 = planes_full.unsqueeze(0).repeat(4, 1, 1, 1)
+    for name, fn in (
+            ("sobel_planar", lambda: sobel_planar.sobel_planar(batch4)),
+            ("gaussian_planar", lambda: blur_planar.gaussian_planar(
+                batch4.view(4 * c, h, w), w3, MAIN_GAUSS_RADIUS))):
+        least, by = bound(name, (4, *FULL), MAIN_GAUSS_RADIUS)
+        print(f"[{card}] {name} on 4 images (4, {c}, {h}, {w}): kernel "
+              f"{event_ms(fn):.4f} ms, bound {least:.4f} ms ({by})")
+    del batch4
+    # The band (level-4 gaussian from r = 3) launched on the planes.
+    for radius, sigma in ((MAIN_GAUSS_RADIUS, MAIN_SIGMA), (15, 5.0)):
+        hi, lo = (weights_to_torch(t, dev)
+                  for t in bf16_split(gaussian_kernel_f32(radius, sigma)))
+        k = event_ms(lambda: blur.gaussian_band_rows(planes_full, hi, lo, radius, 1))
+        least, by = bound("gaussian_band_rows", FULL, radius)
+        print(f"[{card}] gaussian_band_rows on (3, {h}, {w}) planes r={radius}: "
+              f"kernel {k:.4f} ms, bound {least:.4f} ms ({by})")
+    # The fused planar blur (one launch, intermediate in shared memory)
+    # against the two launches of the rows kernels on the same planes
+    # (channels=1), in the order A, B, B, A.
+    for radius, sigma in ((MAIN_GAUSS_RADIUS, MAIN_SIGMA), (15, 5.0), (31, 8.0)):
+        wt = weights_to_torch(gaussian_kernel_f32(radius, sigma), dev)
+        for what, one, two in (
+                ("gaussian", lambda: blur_planar.gaussian_planar(planes_full, wt, radius),
+                 lambda: blur.gaussian_rows(planes_full, wt, radius, 1)),
+                ("box", lambda: blur_planar.box_planar(planes_full, radius),
+                 lambda: blur.box_rows(planes_full, radius, 1))):
+            a1, b1, b2, a2 = event_ms(one), event_ms(two), event_ms(two), event_ms(one)
+            print(f"[{card}] A/B {what} r={radius} on (3, {h}, {w}) planes: fused "
+                  f"{what}_planar {a1:.4f}, {a2:.4f} ms; two-launch {what}_rows "
+                  f"{b1:.4f}, {b2:.4f} ms; fused / two-launch "
+                  f"{(a1 + a2) / (b1 + b2):.3f}")
+    # The model's forward: permutes in and out plus the kernel.  Host clock
+    # around a call that ends in a synchronize, least of 5, and CUDA events.
+    model = GaussianBlur(MAIN_SIGMA, MAIN_GAUSS_RADIUS, 2).to(dev)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(image_t)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1000.0)
+    print(f"[{card}] GaussianBlur(level=2) forward {w}x{h}x{c}: wall "
+          f"{min(walls):.4f} ms (host clock, least of 5), CUDA events "
+          f"{event_ms(lambda: model(image_t)):.4f} ms, of which the kernel "
+          f"{times['gaussian_planar'][0]:.4f} ms")
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
 
     # No single PyTorch call computes these functions (the u8 rounding
@@ -699,7 +1025,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": spec["source"],
          "replaces": spec["replaces"], "also_replaces": spec["also_replaces"],
-         "launches": server_launches[name], "max_abs_err": max_err[name],
+         "launches": (server_launches if name in ROWS_KERNELS
+                      else planar_launches)[name],
+         "max_abs_err": max_err[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": None}

@@ -7,6 +7,7 @@ the same module names so each counterpart is easy to find:
 * jnp level-1 ops            -> plain torch ops (ops/interleaved.py)
 * jit-cache dispatch runtime -> FilterRuntime on an explicit torch.device
                                 (runtime/)
+* filter model dataclasses   -> nn.Modules over (H, W, C) tensors (models/)
 
 It imports torch and never jax.  Top-level exports mirror the `gpu_filters`
 module surface (backend/cuda_bindings/bindings.cpp:240-283).

@@ -35,6 +35,11 @@ RADIUS_RANGE: tuple[int, int] = (1, 15)
 # keep the same hard cap so oversize requests fail the same way.
 MAX_KERNEL_TAPS: int = 64
 
+#: Level-4 gaussian: the band kernel from this radius up, folded taps below
+#: it (gpu_image_processing_tpu/ops/pallas/blur_mxu.py:87).  Both packages
+#: route on radius alone, so they compute the same function at every radius.
+GAUSS_MXU_MIN_RADIUS: int = 3
+
 VALID_CHANNELS: tuple[int, ...] = (1, 3, 4)
 #: Levels the comparison endpoints iterate over (backend/app.py:332).
 VALID_LEVELS: tuple[int, ...] = (1, 2)

@@ -1,1 +1,2 @@
-"""Plain torch ops on the (H, W*C) rows layout, and the CUDA kernels."""
+"""Plain torch ops (level 1 on (H, W*C) rows and on (H, W, C) images), the
+planar registry, and the CUDA kernels."""

@@ -16,81 +16,28 @@
 // the horizontal result is quantized to uint8 before the vertical pass reads
 // it.
 //
-// Numerics, per pass (bit-exact against the plain versions in
-// ops/interleaved.py):
-//   Weighted (level 2): acc = __fadd_rn(acc, __fmul_rn(px, w[t])) in tap order;
-//   Folded (level 4, r < 3): for t < r, acc += (x[t] + x[2r-t]) * w[t] in t
-//     order, then acc += x[r] * w[r] (blur.py:318-329);
-//   Band (level 4, r >= 3): hi += x * hi[t] and lo += x * lo[t] in tap order,
-//     two accumulators, then hi + lo (blur_mxu.py:247-251,271-282); hi and lo
-//     are exact bf16 values, so every product is exact in f32;
-//   Box (levels 2 and 4): an int32 window sum, exact, so tap order does not
-//     matter (the argument of blur_mxu.py:23-31, and both TPU routes at level
-//     4, the folded box and the box band, are exact too), then
-//     __fmul_rn((float)sum, 1/taps);
-// then floor(acc + 0.5).
+// Numerics, per pass: `taps_value` of taps.cuh (bit-exact against the plain
+// versions in ops/interleaved.py), then floor(acc + 0.5).  Box at levels 2
+// and 4 is exact (the argument of blur_mxu.py:23-31, and both TPU routes at
+// level 4, the folded box and the box band, are exact too).
 //
 // Design: two launches, one thread per output byte, the uint8 intermediate in
 // device memory.  Each pass reads its 2r+1 taps from L1/L2 and writes one
 // byte, so it is bound by memory traffic (one u8 read and write of the image
 // per pass from device memory, plus cache hits for the taps); the band mode
 // doubles the arithmetic and at large radii is bound by it.  A fused tile
-// with the intermediate in shared memory, and for the band a tensor-core
-// product (mma.sync or wgmma, bf16 in, f32 accumulate), are the next steps
-// for speed.
-
-#include <type_traits>
+// with the intermediate in shared memory (as blur_planar.cu does for
+// planes), and for the band a tensor-core product (mma.sync or wgmma, bf16
+// in, f32 accumulate), are the next steps for speed.
 
 #include "launch.cuh"
-
-namespace gip {
-// Tap orders, as template tags (their names show in profiler traces).
-struct Weighted {};
-struct Folded {};
-struct Band {};
-struct Box {};
-}  // namespace gip
+#include "taps.cuh"
 
 namespace {
 
 using gip::clamp_index;
 using gip::quantize_u8;
-
-// One pass's value from `load(t)`, the u8 value of tap t in [0, 2r].
-template <typename Mode, typename Load>
-__device__ __forceinline__ float taps_value(const Load& load,
-                                            const float* __restrict__ w,
-                                            const float* __restrict__ lo,
-                                            float inv, int radius) {
-  if constexpr (std::is_same_v<Mode, gip::Box>) {
-    int sum = 0;
-    for (int t = 0; t <= 2 * radius; ++t) sum += load(t);
-    return __fmul_rn(static_cast<float>(sum), inv);
-  } else if constexpr (std::is_same_v<Mode, gip::Folded>) {
-    float acc = 0.0f;
-    for (int t = 0; t < radius; ++t) {
-      const float pair = static_cast<float>(load(t) + load(2 * radius - t));
-      acc = __fadd_rn(acc, __fmul_rn(pair, __ldg(w + t)));
-    }
-    return __fadd_rn(acc, __fmul_rn(static_cast<float>(load(radius)),
-                                    __ldg(w + radius)));
-  } else if constexpr (std::is_same_v<Mode, gip::Band>) {
-    float acc_hi = 0.0f;
-    float acc_lo = 0.0f;
-    for (int t = 0; t <= 2 * radius; ++t) {
-      const float px = static_cast<float>(load(t));
-      acc_hi = __fadd_rn(acc_hi, __fmul_rn(px, __ldg(w + t)));
-      acc_lo = __fadd_rn(acc_lo, __fmul_rn(px, __ldg(lo + t)));
-    }
-    return __fadd_rn(acc_hi, acc_lo);
-  } else {
-    float acc = 0.0f;
-    for (int t = 0; t <= 2 * radius; ++t) {
-      acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(load(t)), __ldg(w + t)));
-    }
-    return acc;
-  }
-}
+using gip::taps_value;
 
 // Horizontal pass: taps step by whole pixels (C lanes), clamped per pixel.
 // blockIdx.z is the image of the batch.

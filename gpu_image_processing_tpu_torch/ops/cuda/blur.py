@@ -60,7 +60,7 @@ def check_rows(rows: torch.Tensor, channels: int) -> tuple[int, int, int]:
     return batch, rows.shape[-2], rows.shape[-1] // channels
 
 
-def _check_table(table: torch.Tensor, rows: torch.Tensor, radius: int,
+def check_table(table: torch.Tensor, rows: torch.Tensor, radius: int,
                  name: str) -> None:
     if (table.device != rows.device or table.dtype != torch.float32
             or tuple(table.shape) != (2 * radius + 1,)
@@ -97,7 +97,7 @@ def gaussian_rows(rows: torch.Tensor, weights: torch.Tensor, radius: int,
     """
     if rows.device.type == "cpu":
         return gaussian_rows_plain(rows, weights, radius, channels)
-    _check_table(weights, rows, radius, "weights")
+    check_table(weights, rows, radius, "weights")
     out = _launch("gip_gaussian_rows", rows, channels, radius,
                   weights.data_ptr())
     LAUNCHES["gaussian_rows"] += 1
@@ -109,7 +109,7 @@ def gaussian_folded_rows(rows: torch.Tensor, weights: torch.Tensor,
     """Separable gaussian blur with symmetric tap pairs (level 4, r < 3)."""
     if rows.device.type == "cpu":
         return gaussian_folded_rows_plain(rows, weights, radius, channels)
-    _check_table(weights, rows, radius, "weights")
+    check_table(weights, rows, radius, "weights")
     out = _launch("gip_gaussian_folded_rows", rows, channels, radius,
                   weights.data_ptr())
     LAUNCHES["gaussian_folded_rows"] += 1
@@ -125,8 +125,8 @@ def gaussian_band_rows(rows: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
     """
     if rows.device.type == "cpu":
         return gaussian_band_rows_plain(rows, hi, lo, radius, channels)
-    _check_table(hi, rows, radius, "hi")
-    _check_table(lo, rows, radius, "lo")
+    check_table(hi, rows, radius, "hi")
+    check_table(lo, rows, radius, "lo")
     out = _launch("gip_gaussian_band_rows", rows, channels, radius,
                   hi.data_ptr(), lo.data_ptr())
     LAUNCHES["gaussian_band_rows"] += 1

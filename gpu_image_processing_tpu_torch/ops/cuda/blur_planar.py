@@ -1,0 +1,148 @@
+"""The fused planar blur kernel of `blur_planar.cu` and its plain versions.
+
+`gaussian_planar` (level 2), `gaussian_folded_planar` (level 4, r < 3) and
+`box_planar` replace the TPU kernel `ops/pallas/blur.py::_blur_kernel` as
+`_separable_blur_planar` launches it on planes.  Each takes (N, H, W) uint8
+planes, the C planes of one image or the B*C planes of a batch, and blurs
+every plane on its own in one launch, both passes in it.  With
+`rows_prepadded=True` the input is (N, H + 2r, W): r given halo rows above
+and below each plane, which the vertical pass reads unclamped.
+
+The fused tile is sized for at most `MAX_KERNEL_TAPS` taps (r <= 31); a
+larger radius raises ValueError, on every device.  On a CPU tensor a wrapper
+returns the plain version; on a CUDA tensor it launches the kernel or
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...core.config import MAX_KERNEL_TAPS
+from .. import interleaved
+from ..weights import box_inv_taps_f32
+from . import LAUNCHES, build
+from .blur import MAX_BATCH, check_table
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "gip_gaussian_planar": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gip_gaussian_folded_planar": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gip_box_planar": [_P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _P],
+}
+
+#: Output rows a block owns (kTileH of blur_planar.cu and sobel_planar.cu);
+#: the grid's y dimension holds at most 65535 of them.
+_TILE_ROWS = 32
+MAX_HEIGHT = 65535 * _TILE_ROWS
+
+
+def gaussian_planar_plain(planes: torch.Tensor, weights: torch.Tensor,
+                          radius: int, rows_prepadded: bool = False
+                          ) -> torch.Tensor:
+    """`gaussian_planar` in plain torch ops."""
+    return interleaved.gaussian_rows(planes, weights, radius, 1, rows_prepadded)
+
+
+def gaussian_folded_planar_plain(planes: torch.Tensor, weights: torch.Tensor,
+                                 radius: int, rows_prepadded: bool = False
+                                 ) -> torch.Tensor:
+    """`gaussian_folded_planar` in plain torch ops."""
+    return interleaved.gaussian_rows_folded(planes, weights, radius, 1,
+                                            rows_prepadded)
+
+
+def box_planar_plain(planes: torch.Tensor, radius: int,
+                     rows_prepadded: bool = False) -> torch.Tensor:
+    """`box_planar` in plain torch ops."""
+    return interleaved.box_rows(planes, radius, 1, rows_prepadded)
+
+
+def check_planes(planes: torch.Tensor, radius: int,
+                 rows_prepadded: bool) -> tuple[int, int, int]:
+    """(planes, output height, width) of contiguous (N, H[+2r], W) uint8
+    planes at a radius the fused tile takes; raises otherwise."""
+    if (planes.dtype != torch.uint8 or planes.dim() != 3
+            or not planes.is_contiguous()):
+        raise ValueError(
+            f"expected contiguous (N, H, W) uint8 planes; got {planes.dtype} "
+            f"{tuple(planes.shape)}")
+    if radius < 1:
+        raise ValueError(f"radius must be >= 1; got {radius}")
+    if 2 * radius + 1 > MAX_KERNEL_TAPS:
+        raise ValueError(
+            f"the fused planar blur takes at most MAX_KERNEL_TAPS = "
+            f"{MAX_KERNEL_TAPS} taps (r <= {(MAX_KERNEL_TAPS - 1) // 2}); got "
+            f"r = {radius}")
+    n, rows, width = planes.shape
+    height = rows - 2 * radius if rows_prepadded else rows
+    if height < 1 or width < 1:
+        raise ValueError(
+            f"planes of {rows} rows x {width} hold no output at r = {radius}"
+            f"{' with halo rows' if rows_prepadded else ''}")
+    if not 1 <= n <= MAX_BATCH or height > MAX_HEIGHT:
+        raise ValueError(f"{n} planes of {height} rows; one launch takes 1 to "
+                         f"{MAX_BATCH} planes of at most {MAX_HEIGHT} rows")
+    return n, height, width
+
+
+def _launch(fn_name: str, planes: torch.Tensor, dims: tuple[int, int, int],
+            radius: int, rows_prepadded: bool, table_or_scale) -> torch.Tensor:
+    n, height, width = dims
+    lib = build.load("blur_planar", planes.device, _SIGNATURES)
+    out = torch.empty((n, height, width), dtype=torch.uint8,
+                      device=planes.device)
+    with torch.cuda.device(planes.device):
+        code = getattr(lib, fn_name)(
+            planes.data_ptr(), out.data_ptr(), table_or_scale, radius, n,
+            height, width, int(rows_prepadded),
+            build.stream_handle(planes.device))
+    build.check(lib, code, fn_name)
+    return out
+
+
+def gaussian_planar(planes: torch.Tensor, weights: torch.Tensor, radius: int,
+                    rows_prepadded: bool = False) -> torch.Tensor:
+    """Separable gaussian blur of each plane, level-2 numerics.
+
+    `weights` is the (2r+1,) float32 table on the same device as `planes`.
+    """
+    dims = check_planes(planes, radius, rows_prepadded)
+    check_table(weights, planes, radius, "weights")
+    if planes.device.type == "cpu":
+        return gaussian_planar_plain(planes, weights, radius, rows_prepadded)
+    out = _launch("gip_gaussian_planar", planes, dims, radius, rows_prepadded,
+                  weights.data_ptr())
+    LAUNCHES["gaussian_planar"] += 1
+    return out
+
+
+def gaussian_folded_planar(planes: torch.Tensor, weights: torch.Tensor,
+                           radius: int, rows_prepadded: bool = False
+                           ) -> torch.Tensor:
+    """Separable gaussian blur of each plane with symmetric tap pairs
+    (level 4, r < 3)."""
+    dims = check_planes(planes, radius, rows_prepadded)
+    check_table(weights, planes, radius, "weights")
+    if planes.device.type == "cpu":
+        return gaussian_folded_planar_plain(planes, weights, radius,
+                                            rows_prepadded)
+    out = _launch("gip_gaussian_folded_planar", planes, dims, radius,
+                  rows_prepadded, weights.data_ptr())
+    LAUNCHES["gaussian_folded_planar"] += 1
+    return out
+
+
+def box_planar(planes: torch.Tensor, radius: int,
+               rows_prepadded: bool = False) -> torch.Tensor:
+    """Separable box blur of each plane (int32 window sums, exact at levels
+    2 and 4)."""
+    dims = check_planes(planes, radius, rows_prepadded)
+    if planes.device.type == "cpu":
+        return box_planar_plain(planes, radius, rows_prepadded)
+    out = _launch("gip_box_planar", planes, dims, radius, rows_prepadded,
+                  float(box_inv_taps_f32(radius)))
+    LAUNCHES["box_planar"] += 1
+    return out

@@ -13,7 +13,7 @@
 // because Mosaic has no strided lane load (sobel_mxu.py:3-9).  Here each
 // thread reads its pixels' channels directly.
 //
-// Numerics, per output pixel:
+// Numerics, per output pixel (edges.cuh):
 //   gray = (0.299f*R + 0.587f*G) + 0.114f*B with every product and sum
 //          rounded (C = 1: the value itself), quantized to floor(gray + 0.5)
 //          when kQuantGray (level 2), kept in f32 otherwise (level 1);
@@ -27,21 +27,17 @@
 // bound by memory traffic (one read and one write of the image).  A tile of
 // grey values in shared memory is the next step for speed.
 
-#include "launch.cuh"
+#include "edges.cuh"
 
 namespace {
-
-using gip::quantize_u8;
 
 template <bool kQuantGray>
 __device__ __forceinline__ float gray(const uint8_t* __restrict__ px,
                                       int channels) {
   if (channels == 1) return static_cast<float>(px[0]);
-  const float g = __fadd_rn(
-      __fadd_rn(__fmul_rn(0.299f, static_cast<float>(px[0])),
-                __fmul_rn(0.587f, static_cast<float>(px[1]))),
-      __fmul_rn(0.114f, static_cast<float>(px[2])));
-  return kQuantGray ? quantize_u8(g) : g;
+  return gip::gray_rgb<kQuantGray>(static_cast<float>(px[0]),
+                                   static_cast<float>(px[1]),
+                                   static_cast<float>(px[2]));
 }
 
 // blockIdx.z is the image of the batch.
@@ -68,20 +64,7 @@ __global__ void sobel_edges(const uint8_t* __restrict__ src,
               row + static_cast<size_t>(x + dx - 1) * channels, channels);
         }
       }
-      float gx = __fmul_rn(-1.0f, g[0][0]);
-      gx = __fadd_rn(gx, __fmul_rn(1.0f, g[0][2]));
-      gx = __fadd_rn(gx, __fmul_rn(-2.0f, g[1][0]));
-      gx = __fadd_rn(gx, __fmul_rn(2.0f, g[1][2]));
-      gx = __fadd_rn(gx, __fmul_rn(-1.0f, g[2][0]));
-      gx = __fadd_rn(gx, __fmul_rn(1.0f, g[2][2]));
-      float gy = __fmul_rn(-1.0f, g[0][0]);
-      gy = __fadd_rn(gy, __fmul_rn(-2.0f, g[0][1]));
-      gy = __fadd_rn(gy, __fmul_rn(-1.0f, g[0][2]));
-      gy = __fadd_rn(gy, __fmul_rn(1.0f, g[2][0]));
-      gy = __fadd_rn(gy, __fmul_rn(2.0f, g[2][1]));
-      gy = __fadd_rn(gy, __fmul_rn(1.0f, g[2][2]));
-      const float m = __fsqrt_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)));
-      mag = floorf(__fadd_rn(fminf(m, 255.0f), 0.5f));
+      mag = gip::sobel_magnitude(g);
     }
     const uint8_t out = static_cast<uint8_t>(mag);
     uint8_t* o = dst + static_cast<size_t>(y) * row_bytes +

@@ -49,10 +49,16 @@ def bf16_split(weights: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     both rounded to nearest even (blur_mxu.py:168-187): the weight split of
     the level-4 band tier.  Every value is an exact bf16, so its product
     with a u8 pixel is exact in f32."""
-    w = torch.tensor(np.asarray(weights, dtype=np.float32))
-    hi = w.to(torch.bfloat16).to(torch.float32)
-    lo = (w - hi).to(torch.bfloat16).to(torch.float32)
+    hi, lo = bf16_split_tensor(torch.tensor(np.asarray(weights, dtype=np.float32)))
     return hi.numpy(), lo.numpy()
+
+
+def bf16_split_tensor(weights: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`bf16_split` of a float32 tensor, on the tensor's own device (torch
+    rounds float32 to bfloat16 to nearest even on the CPU and the card)."""
+    hi = weights.to(torch.bfloat16).to(torch.float32)
+    lo = (weights - hi).to(torch.bfloat16).to(torch.float32)
+    return hi, lo
 
 
 def weights_to_torch(weights: np.ndarray, device: torch.device) -> torch.Tensor:

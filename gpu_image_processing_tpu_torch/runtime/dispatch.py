@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core import config
+from ..core.config import GAUSS_MXU_MIN_RADIUS
 from ..core.metrics import PerformanceMetrics, compute_metrics
 from ..core.params import (
     FILTERS,
@@ -47,11 +48,6 @@ from .timing import timed
 
 Rows = torch.Tensor
 RowsFn = Callable[[Rows], Rows]
-
-#: Level-4 gaussian: the band kernel from this radius up, folded taps below
-#: it (gpu_image_processing_tpu/ops/pallas/blur_mxu.py:87).  Both packages
-#: route on radius alone, so they compute the same function at every radius.
-GAUSS_MXU_MIN_RADIUS = 3
 
 
 def _check_filter(filter_name: str) -> None:
