@@ -15,7 +15,8 @@ radius alone:
 * gaussian level 4: folded taps below `GAUSS_MXU_MIN_RADIUS`, the bf16
   hi + lo band (`gaussian_band_rows` on the planes, one channel) from it up;
 * box, levels 2 and 4 (every route is exact): the fused planar blur while
-  2r + 1 <= `MAX_KERNEL_TAPS`, the two-pass `box_rows` on the planes above;
+  2r + 1 <= `MAX_KERNEL_TAPS`, the running-sum `box_rows` on the planes
+  above;
 * Sobel level 2: `sobel_planar`; level 4: `sobel_f32_planar` (f32 grey).
 
 On CPU tensors every kernel wrapper serves its plain version; on CUDA

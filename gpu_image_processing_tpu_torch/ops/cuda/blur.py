@@ -1,12 +1,23 @@
 """The blur kernels of `blur.cu` and their plain torch versions.
 
 * `gaussian_rows` replaces the TPU kernel `ops/pallas/blur.py::_blur_kernel`
-  (level 2);
-* `gaussian_folded_rows` replaces it with `folded=True` (level 4, r < 3);
+  (level 2); `gaussian_folded_rows` replaces it with `folded=True` (level 4,
+  r < 3).  Two launches, scalar tap loops, bit-exact, bound by instruction
+  issue.
 * `gaussian_band_rows` replaces `ops/pallas/blur_mxu.py::_gauss_mxu_kernel`
-  in gaussian mode (level 4, r >= 3);
+  in gaussian mode (level 4, r >= 3): the bf16 hi + lo band products of
+  both passes on the tensor cores in one launch (`band_mma_rows`).  The
+  tensor cores sum in their own order, so it is held to maxdiff <= 1 on at
+  most 0.1% of bytes against its tap-order plain version (`BAND_MAX_DIFF`,
+  `BAND_MAX_FRACTION`), as the TPU kernel was held to level 4's "within 1 of
+  level 2"; it is deterministic, and a batch equals its single launches.
 * `box_rows` replaces `_blur_kernel` in box mode and `_gauss_mxu_kernel` in
-  box mode, at levels 2 and 4 (every route is exact).
+  box mode, at levels 2 and 4: integer running window sums, exact in any
+  order, so bit-exact.  Routed on the radius: up to `BOX_WINDOW_MAX_RADIUS`
+  one launch with the intermediate in shared memory (`box_window_rows`),
+  past it two launches through device memory (`box_wide_h`, `box_wide_v`),
+  whose first window is summed in closed form, so a radius wider than the
+  image costs O(W) and O(H) loads a segment, not O(r).
 
 Each takes (H, W*C) uint8 rows or a (B, H, W*C) batch of them, which one
 launch filters image by image.  On a CPU tensor a wrapper returns the plain
@@ -27,12 +38,25 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "gip_gaussian_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gip_gaussian_folded_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gip_gaussian_band_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gip_box_rows": [_P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _P],
+    "gip_gaussian_band_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gip_box_window_rows": [_P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _P],
+    "gip_box_wide_rows": [_P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _P],
 }
 
 #: The grid's z dimension, which carries the batch, holds at most this many.
 MAX_BATCH = 65535
+#: Box radii up to this run in one launch (a shared ring of 2r + 16 rows);
+#: wider ones take the two-launch running sum.
+BOX_WINDOW_MAX_RADIUS = 64
+#: A box strip holds at most 512 lanes and at least 32 pixels.
+BOX_MAX_CHANNELS = 16
+#: The band's radii: 2r + 1 <= MAX_KERNEL_TAPS (core/config.py); its
+#: staged tile (taps C lanes apart) fits shared memory up to 4 channels.
+BAND_MAX_RADIUS = 31
+BAND_MAX_CHANNELS = 4
+#: The band kernel against its plain version: at most this difference, on
+#: at most this fraction of bytes (sums in the tensor cores' order).
+BAND_MAX_DIFF, BAND_MAX_FRACTION = 1, 1e-3
 
 # The plain versions: the kernels' functions in plain torch ops.
 gaussian_rows_plain = interleaved.gaussian_rows
@@ -71,19 +95,21 @@ def check_table(table: torch.Tensor, rows: torch.Tensor, radius: int,
 
 
 def _launch(fn_name: str, rows: torch.Tensor, channels: int, radius: int,
-            *tables_or_scale) -> torch.Tensor:
-    """Launch one of blur.cu's functions on `rows`: its weight tables (or
+            *tables_or_scale, scratch: bool = True) -> torch.Tensor:
+    """Launch one of blur.cu's functions on `rows`: input, scratch of the
+    image's size (unless `scratch` is False), output, its weight tables (or
     the box's scale), then radius, batch, height, width, channels."""
     batch, height, width = check_rows(rows, channels)
     if radius < 1:
         raise ValueError(f"radius must be >= 1; got {radius}")
     lib = build.load("blur", rows.device, _SIGNATURES)
-    tmp = torch.empty_like(rows)
     out = torch.empty_like(rows)
+    buffers = [rows.data_ptr(), out.data_ptr()]
+    if scratch:
+        buffers.insert(1, torch.empty_like(rows).data_ptr())
     with torch.cuda.device(rows.device):
         code = getattr(lib, fn_name)(
-            rows.data_ptr(), tmp.data_ptr(), out.data_ptr(), *tables_or_scale,
-            radius, batch, height, width, channels,
+            *buffers, *tables_or_scale, radius, batch, height, width, channels,
             build.stream_handle(rows.device))
     build.check(lib, code, fn_name)
     return out
@@ -118,7 +144,8 @@ def gaussian_folded_rows(rows: torch.Tensor, weights: torch.Tensor,
 
 def gaussian_band_rows(rows: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
                        radius: int, channels: int) -> torch.Tensor:
-    """Separable gaussian blur with bf16 hi + lo weights (level 4, r >= 3).
+    """Separable gaussian blur with bf16 hi + lo weights (level 4, r >= 3),
+    1 <= r <= `BAND_MAX_RADIUS`.
 
     `hi`, `lo` are the f32 tables of `ops.weights.bf16_split`, on the same
     device as `rows`.
@@ -127,17 +154,29 @@ def gaussian_band_rows(rows: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
         return gaussian_band_rows_plain(rows, hi, lo, radius, channels)
     check_table(hi, rows, radius, "hi")
     check_table(lo, rows, radius, "lo")
+    if radius > BAND_MAX_RADIUS or channels > BAND_MAX_CHANNELS:
+        raise ValueError(f"the band kernel takes r <= {BAND_MAX_RADIUS} and "
+                         f"at most {BAND_MAX_CHANNELS} channels; got r = "
+                         f"{radius}, {channels} channels")
     out = _launch("gip_gaussian_band_rows", rows, channels, radius,
-                  hi.data_ptr(), lo.data_ptr())
+                  hi.data_ptr(), lo.data_ptr(), scratch=False)
     LAUNCHES["gaussian_band_rows"] += 1
     return out
 
 
 def box_rows(rows: torch.Tensor, radius: int, channels: int) -> torch.Tensor:
-    """Separable box blur, any radius >= 1, exact at levels 2 and 4."""
+    """Separable box blur, any radius >= 1, exact at levels 2 and 4; on the
+    card, at most `BOX_MAX_CHANNELS` channels."""
     if rows.device.type == "cpu":
         return box_rows_plain(rows, radius, channels)
-    out = _launch("gip_box_rows", rows, channels, radius,
-                  float(box_inv_taps_f32(radius)))
+    if channels > BOX_MAX_CHANNELS:
+        raise ValueError(f"box_rows takes at most {BOX_MAX_CHANNELS} "
+                         f"channels on the card; got {channels}")
+    inv = float(box_inv_taps_f32(radius))
+    if radius <= BOX_WINDOW_MAX_RADIUS:
+        out = _launch("gip_box_window_rows", rows, channels, radius, inv,
+                      scratch=False)
+    else:
+        out = _launch("gip_box_wide_rows", rows, channels, radius, inv)
     LAUNCHES["box_rows"] += 1
     return out

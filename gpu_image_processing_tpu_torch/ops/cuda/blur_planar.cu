@@ -25,8 +25,8 @@
 // all kTileH + 2r rows into a u8 shared tile; then, after a barrier, the
 // vertical pass from that tile into device memory.  The intermediate never
 // leaves the SM, so the kernel reads the image once and writes it once: it
-// is bound by those 2 N H W bytes (blur.cu's two launches move twice as
-// many).  Neighbouring blocks recompute the 2r halo rows of the
+// is bound by those 2 N H W bytes (blur.cu's two-launch gaussian moves
+// twice as many).  Neighbouring blocks recompute the 2r halo rows of the
 // intermediate; the horizontal pass is row-local and deterministic, so the
 // values agree (the argument of spatial.py:100-104).  That recompute costs
 // (kTileH + 2r) / kTileH horizontal passes, 2.9 at r = 31.  Shared memory,
@@ -88,7 +88,7 @@ blur_planar(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
     const uint8_t* px = in + i * cols + j;
     const auto load = [&](int t) -> int { return px[t]; };
     mid[i * kTileW + j] = static_cast<uint8_t>(
-        quantize_u8(taps_value<Mode>(load, w, nullptr, inv, radius)));
+        quantize_u8(taps_value<Mode>(load, w, inv, radius)));
   }
   __syncthreads();
 
@@ -98,7 +98,7 @@ blur_planar(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
     const uint8_t* px = mid + i * kTileW + j;
     const auto load = [&](int t) -> int { return px[t * kTileW]; };
     dst[static_cast<size_t>(y0 + i) * width + x] = static_cast<uint8_t>(
-        quantize_u8(taps_value<Mode>(load, w, nullptr, inv, radius)));
+        quantize_u8(taps_value<Mode>(load, w, inv, radius)));
   }
 }
 

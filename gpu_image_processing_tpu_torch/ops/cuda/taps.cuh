@@ -1,15 +1,19 @@
-// The blur taps shared by blur.cu (two passes through device memory) and
+// The scalar blur taps shared by blur.cu (`gaussian_rows` and
+// `gaussian_folded_rows`, two passes through device memory) and
 // blur_planar.cu (both passes in one launch): one pass's value at one output
 // element, in the tap order each numerics level fixes.
 //
 //   Weighted (level 2): acc = __fadd_rn(acc, __fmul_rn(px, w[t])) in tap order;
 //   Folded (level 4, r < 3): for t < r, acc += (x[t] + x[2r-t]) * w[t] in t
 //     order, then acc += x[r] * w[r] (blur.py:318-329);
-//   Band (level 4, r >= 3): hi += x * hi[t] and lo += x * lo[t] in tap order,
-//     two accumulators, then hi + lo (blur_mxu.py:247-251,271-282); hi and lo
-//     are exact bf16 values, so every product is exact in f32;
 //   Box (levels 2 and 4): an int32 window sum, exact, so tap order does not
 //     matter, then __fmul_rn((float)sum, 1/taps).
+//
+// What bounds a kernel built on these: instruction issue, about ten
+// instructions a tap (load, convert, weight load, multiply, add, loop).
+// The redesigned box and band of blur.cu do not use them: box keeps
+// running window sums (O(1) a tap-window), the band runs on the tensor
+// cores.
 #pragma once
 
 #include <type_traits>
@@ -19,14 +23,12 @@ namespace gip {
 // Tap orders, as template tags (their names show in profiler traces).
 struct Weighted {};
 struct Folded {};
-struct Band {};
 struct Box {};
 
 // One pass's value from `load(t)`, the u8 value of tap t in [0, 2r].
 template <typename Mode, typename Load>
 __device__ __forceinline__ float taps_value(const Load& load,
                                             const float* __restrict__ w,
-                                            const float* __restrict__ lo,
                                             float inv, int radius) {
   if constexpr (std::is_same_v<Mode, Box>) {
     int sum = 0;
@@ -40,15 +42,6 @@ __device__ __forceinline__ float taps_value(const Load& load,
     }
     return __fadd_rn(acc, __fmul_rn(static_cast<float>(load(radius)),
                                     __ldg(w + radius)));
-  } else if constexpr (std::is_same_v<Mode, Band>) {
-    float acc_hi = 0.0f;
-    float acc_lo = 0.0f;
-    for (int t = 0; t <= 2 * radius; ++t) {
-      const float px = static_cast<float>(load(t));
-      acc_hi = __fadd_rn(acc_hi, __fmul_rn(px, __ldg(w + t)));
-      acc_lo = __fadd_rn(acc_lo, __fmul_rn(px, __ldg(lo + t)));
-    }
-    return __fadd_rn(acc_hi, acc_lo);
   } else {
     float acc = 0.0f;
     for (int t = 0; t <= 2 * radius; ++t) {

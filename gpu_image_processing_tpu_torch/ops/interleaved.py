@@ -14,11 +14,12 @@ Level 1 (`gaussian_rows`, `box_rows`, `sobel_rows`) is bit-identical to the
 CUDA naive kernels (image_filters.cu:64-144,362-431,1152-1315): every output
 element sees the same f32 operation sequence, each tap term multiplied,
 then added in tap order.  `gaussian_rows_folded` and `gaussian_rows_band`
-are the level-4 tiers' functions, each in its own fixed order, so that a
-kernel can match them to the bit.  Each torch op here is its own
-elementwise kernel, so no multiply and add are contracted into one FMA; do
-not `torch.compile` this module, since fusion could contract them and flip
-floor(x + 0.5) ties.  The same code runs on the CPU and on a CUDA device.
+are the level-4 tiers' functions, each in its own fixed order: the folded
+kernel matches it to the bit, the tensor-core band kernel sums in its own
+order and is held to within 1 on at most 0.1% of bytes.  Each torch op
+here is its own elementwise kernel, so no multiply and add are contracted
+into one FMA; do not `torch.compile` this module, since fusion could
+contract them and flip floor(x + 0.5) ties.  The same code runs on the CPU and on a CUDA device.
 """
 
 from __future__ import annotations

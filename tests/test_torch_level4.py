@@ -194,8 +194,14 @@ def test_level4_kernels_match_plain_on_card(rng, shape):
         hi, lo = (weights_to_torch(t, dev) for t in bf16_split(table))
         assert torch.equal(blur.gaussian_folded_rows(rows, wt, radius, c),
                            blur.gaussian_folded_rows_plain(rows, wt, radius, c))
-        assert torch.equal(blur.gaussian_band_rows(rows, hi, lo, radius, c),
-                           blur.gaussian_band_rows_plain(rows, hi, lo, radius, c))
+        # The band sums on the tensor cores, not in tap order: maxdiff <= 1
+        # on at most 0.1% of bytes, and the same bits on every launch.
+        band = blur.gaussian_band_rows(rows, hi, lo, radius, c)
+        diff = (band.to(torch.int32) - blur.gaussian_band_rows_plain(
+            rows, hi, lo, radius, c).to(torch.int32)).abs()
+        assert int(diff.max()) <= blur.BAND_MAX_DIFF
+        assert float((diff > 0).float().mean()) <= blur.BAND_MAX_FRACTION
+        assert torch.equal(band, blur.gaussian_band_rows(rows, hi, lo, radius, c))
     got = sobel.sobel_f32_rows(rows, w, c).cpu().numpy().reshape(h, w, c)
     want = sobel.sobel_f32_rows_plain(rows, w, c).cpu().numpy().reshape(h, w, c)
     assert_sobel_close(got, want)
