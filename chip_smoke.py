@@ -13,7 +13,8 @@ Phases, each of which fails the run on its own:
    per source, all started together;
 3. kernel vs plain: each of the eleven kernels against its plain torch
    version on the card, at small shapes, edge shapes and the full 2146x3239
-   RGB image, gaussian at r in {1, 2, 3, 15, 31}, box also at r = 64 (the
+   RGB image, gaussian at r in {1, 2, 3, 15, 31} and the rows gaussian
+   also at r = 20 (its kernel that takes the radius at run time), box also at r = 64 (the
    widest of the one-launch running sum), 65 (the first of the two-launch
    one) and 4000 (wider than every image); every kernel must agree exactly,
    except colour level-2 Sobel, held to the bound of
@@ -22,7 +23,8 @@ Phases, each of which fails the run on its own:
    same bits on a second launch.  Every launcher also runs on batches (3
    small images, 4 full-size ones) at the server's radii, which must agree
    with its plain version on the same batch and equal its single-image
-   launches;
+   launches; the rows gaussian launched from three threads at once with
+   three tables, each launch equal to its own plain version;
    the PNG codec's C++ unfilter helper against its numpy version; and the
    level-2 API on a small image against the numpy oracle;
 4. API path: the `gpu_filters` API and `run_all_levels` on the full image
@@ -45,9 +47,10 @@ Phases, each of which fails the run on its own:
    rows); then a torch.profiler trace of both paths that must list every
    kernel;
 7. times: the API's metrics, each kernel's CUDA-event time beside its
-   plain version's and its bound, box and the band at their wide radii, the
-   fused planar blur against `gaussian_rows` and the running-sum
-   `box_rows` on the same planes, and the model's wall.
+   plain version's and its bound, the gaussian (r = 1, 15, 31; folded
+   r = 1), box and the band at their other radii, the fused planar blur
+   against the window `gaussian_rows` and the running-sum `box_rows` on the
+   same planes, and the model's wall.
 
 The line before the last is a JSON object `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`.  Any failure exits non-zero and prints no ok
@@ -61,6 +64,7 @@ import json
 import struct
 import subprocess
 import sys
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -93,6 +97,9 @@ from tests import oracle_numpy as oracle
 FULL = (2146, 3239, 3)        # the README image (bench.py:34,50-52)
 SHAPES = [(24, 31, 3), (19, 23, 1), (17, 29, 4), (2, 2, 3), (1, 7, 1), FULL]
 GAUSS = [(1, 1.0), (2, 1.5), (3, 2.0), (15, 8.0), (31, 8.0)]   # (radius, sigma)
+# The rows gaussian's radii without a kernel of their own (16 to 30 weighted,
+# 3 and up folded) share one that takes the radius at run time.
+GAUSS_RUNTIME_RADIUS = (20, 8.0)
 BOX_RADII = [1, 2, 5, 15, 40]
 # box_rows: the widest radius of its one-launch running sum, the first of
 # its two-launch one, and one wider than every image here.
@@ -108,10 +115,15 @@ SOBEL_MAX_DIFF, SOBEL_MAX_FRACTION = 6, 1e-3
 # The server's request-body cap (server/http.py::_max_body_bytes).
 BODY_CAP = 64 * 1024 * 1024
 
-# Published peaks of one H100 SXM at 700 W: device memory, float32 outside
-# the tensor cores, and dense bf16 on the tensor cores.
+# Peaks of one H100 SXM at 700 W: device memory and dense bf16 on the tensor
+# cores as published; float32 outside the tensor cores as these kernels can
+# issue it.  The published 67e12 counts a fused multiply-add as two
+# operations (132 SMs x 128 lanes x 2 x 1.98 GHz); every kernel here builds
+# with -fmad=false and rounds each multiply and add on its own (__fmul_rn,
+# __fadd_rn), as the bit-exact contract requires, so each operation is one
+# instruction: 132 x 128 x 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+F32_OPS_PER_S = 132 * 128 * 1.98e9
 BF16_TENSOR_OPS_PER_S = 989e12
 
 _BLUR = "gpu_image_processing_tpu_torch/ops/cuda/blur.cu"
@@ -124,7 +136,7 @@ KERNELS = {
         "source": _BLUR,
         "replaces": _TPU + "blur.py:212",
         "also_replaces": [_TPU + "blur.py:985"],
-        "profiler_names": ["blur_h<gip::Weighted>", "blur_v<gip::Weighted>"],
+        "profiler_names": ["gauss_window_rows<gip::Weighted"],
     },
     "box_rows": {
         "source": _BLUR,
@@ -138,13 +150,13 @@ KERNELS = {
         "replaces": _TPU + "sobel_mxu.py:174",
         "also_replaces": [_TPU + "sobel.py:162", _TPU + "sobel_mxu.py:299",
                           _TPU + "sobel.py:289"],
-        "profiler_names": ["sobel_edges<true>"],
+        "profiler_names": ["sobel_tile_rows<true"],
     },
     "gaussian_folded_rows": {
         "source": _BLUR,
         "replaces": _TPU + "blur.py:212",
         "also_replaces": [_TPU + "blur.py:318", _TPU + "blur.py:985"],
-        "profiler_names": ["blur_h<gip::Folded>", "blur_v<gip::Folded>"],
+        "profiler_names": ["gauss_window_rows<gip::Folded"],
     },
     "gaussian_band_rows": {
         "source": _BLUR,
@@ -157,7 +169,7 @@ KERNELS = {
         "replaces": _TPU + "sobel_mxu.py:174",
         "also_replaces": [_TPU + "sobel.py:162", _TPU + "sobel_mxu.py:364",
                           _TPU + "sobel_mxu.py:299", _TPU + "sobel.py:289"],
-        "profiler_names": ["sobel_edges<false>"],
+        "profiler_names": ["sobel_tile_rows<false"],
     },
     "gaussian_planar": {
         "source": _BLUR_PLANAR,
@@ -216,13 +228,15 @@ def launchers(dev: torch.device, radius: int, sigma: float, box_radius: int,
     """name -> (kernel, plain) functions of rows, for one parameter set."""
     table = gaussian_kernel_f32(radius, sigma)
     w = weights_to_torch(table, dev)
+    # The rows gaussian takes its taps by value, from the host.
+    w_host = weights_to_torch(table, torch.device("cpu"))
     hi, lo = (weights_to_torch(t, dev) for t in bf16_split(table))
     r, br, c = radius, box_radius, channels
     return {
-        "gaussian_rows": (lambda x: blur.gaussian_rows(x, w, r, c),
+        "gaussian_rows": (lambda x: blur.gaussian_rows(x, w_host, r, c),
                           lambda x: blur.gaussian_rows_plain(x, w, r, c)),
         "gaussian_folded_rows": (
-            lambda x: blur.gaussian_folded_rows(x, w, r, c),
+            lambda x: blur.gaussian_folded_rows(x, w_host, r, c),
             lambda x: blur.gaussian_folded_rows_plain(x, w, r, c)),
         "gaussian_band_rows": (
             lambda x: blur.gaussian_band_rows(x, hi, lo, r, c),
@@ -269,7 +283,7 @@ def bound(name: str, shape: tuple[int, ...], radius: int) -> tuple[float, str]:
     and the rounding add, counted at the f32 rate), since the window sum is
     exact in any order and needs no more.  Sobel per pixel: 5 for the grey value, 11 each
     for gx and gy, 8 for the magnitude and rounding.  All at the float32
-    rate, except the band: its products are u8 pixels times bf16 weights,
+    rate of one instruction an operation (F32_OPS_PER_S), except the band: its products are u8 pixels times bf16 weights,
     exact in bf16, summed in f32, the band matmul that the TPU ran on its
     matrix unit, which the card runs on its tensor cores."""
     elems = int(np.prod(shape))
@@ -476,6 +490,11 @@ def main() -> int:
             diffs[("box_rows", r)] = compare(
                 "box_rows", blur.box_rows(rows, r, c), blur.box_rows_plain(rows, r, c),
                 shape)
+        r, sigma = GAUSS_RUNTIME_RADIUS
+        for name, (kernel, plain) in launchers(dev, r, sigma, MAIN_BOX_RADIUS,
+                                               w, c).items():
+            if name in ("gaussian_rows", "gaussian_folded_rows"):
+                diffs[(name, r)] = compare(name, kernel(rows), plain(rows), shape)
         print(f"compare {shape}: " + ", ".join(
             f"{n} r={r} {d}" for (n, r), d in diffs.items()))
     torch.cuda.synchronize()
@@ -487,6 +506,34 @@ def main() -> int:
     print(f"gaussian_band_rows vs plain: {band_differing[0]} of {band_differing[1]} "
           f"bytes differ, maxdiff {max_err['gaussian_band_rows']}; a second launch "
           f"at {h}x{w}x{c} r=3, 15, 31 gives the same bits")
+
+    # Threads that launch the rows gaussian at once, as the threaded
+    # server's requests do: each launch carries its own taps.
+    h, w, c = SHAPES[0]
+    rows = torch.from_numpy(rng.integers(0, 256, size=(h, w * c), dtype=np.uint8)).to(dev)
+    thread_cases = [(MAIN_GAUSS_RADIUS, 1.0), (MAIN_GAUSS_RADIUS, MAIN_SIGMA),
+                    GAUSS_RUNTIME_RADIUS]
+    thread_outs = {case: [] for case in thread_cases}
+
+    def launch_many(radius, sigma):
+        kernel, _ = launchers(dev, radius, sigma, MAIN_BOX_RADIUS, w, c)["gaussian_rows"]
+        for _ in range(100):
+            thread_outs[(radius, sigma)].append(kernel(rows))
+
+    threads = [threading.Thread(target=launch_many, args=case) for case in thread_cases]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    for (radius, sigma), outs in thread_outs.items():
+        _, plain = launchers(dev, radius, sigma, MAIN_BOX_RADIUS, w, c)["gaussian_rows"]
+        want = plain(rows)
+        require(len(outs) == 100 and all(torch.equal(o, want) for o in outs),
+                f"gaussian_rows from threads r={radius} sigma={sigma}: differs")
+    print(f"gaussian_rows from {len(threads)} threads at once, 100 launches each "
+          f"(r, sigma) = {thread_cases}: every launch equals its plain version")
+    del thread_outs
 
     # The planar kernels on the same shapes, as (C, H, W) planes.
     for h, w, c in SHAPES:
@@ -955,10 +1002,15 @@ def main() -> int:
               f"(host clock, copies included)")
 
     def event_ms(fn, iters=20) -> float:
-        fn()
-        torch.cuda.synchronize()
+        # Untimed launches first: a card that idled (the host-bound server
+        # phase) raises its clocks only under load.  The card then sleeps
+        # (about 25 ms) while the host queues the timed launches, so the
+        # events time the kernels, not the wrappers' host work between them.
+        for _ in range(10):
+            fn()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
         start.record()
         for _ in range(iters):
             fn()
@@ -992,8 +1044,16 @@ def main() -> int:
 
     for name, (kernel, plain_fn) in arms.items():
         time_kernel(name, kernel, plain_fn, rows, main_radius[name])
-    # Box and the band at their other radii: box to a radius wider than
-    # the image, the band to the cap.
+    # The gaussian, box and the band at their other radii: box to a radius
+    # wider than the image, the gaussian and the band to the cap.
+    for name, table in (("gaussian_rows", ((1, 1.0), (15, 8.0), GAUSS_RUNTIME_RADIUS,
+                                           (31, 8.0))),
+                        ("gaussian_folded_rows", ((1, 1.0),))):
+        for radius, sigma in table:
+            fn, _ = launchers(dev, radius, sigma, MAIN_BOX_RADIUS, w, c)[name]
+            least, by = bound(name, FULL, radius)
+            print(f"[{card}] {name} {w}x{h}x{c} r={radius}: kernel "
+                  f"{event_ms(lambda: fn(rows)):.4f} ms, bound {least:.4f} ms ({by})")
     for radius in [r for r in BOX_RADII + BOX_WIDE_RADII if r != MAIN_BOX_RADIUS]:
         least, by = bound("box_rows", FULL, radius)
         print(f"[{card}] box_rows {w}x{h}x{c} r={radius}: kernel "
@@ -1038,18 +1098,19 @@ def main() -> int:
               f"kernel {k:.4f} ms, bound {least:.4f} ms ({by})")
     # The fused planar blur (one launch, intermediate in shared memory)
     # against the rows kernels on the same planes (channels=1), in the order
-    # A, B, B, A: the two launches of `gaussian_rows`, and the running-sum
-    # `box_rows` (one launch to r = 64), which tells whether planes should
-    # route to the running sum.
+    # A, B, B, A: the window kernel of `gaussian_rows` and the running-sum
+    # `box_rows` (one launch to r = 64), which tell whether planes should
+    # route to them.
     for radius, sigma in ((MAIN_GAUSS_RADIUS, MAIN_SIGMA), (15, 5.0), (31, 8.0)):
         wt = weights_to_torch(gaussian_kernel_f32(radius, sigma), dev)
+        wt_host = wt.cpu()
         for what, one, two in (
                 ("gaussian", lambda: blur_planar.gaussian_planar(planes_full, wt, radius),
-                 lambda: blur.gaussian_rows(planes_full, wt, radius, 1)),
+                 lambda: blur.gaussian_rows(planes_full, wt_host, radius, 1)),
                 ("box", lambda: blur_planar.box_planar(planes_full, radius),
                  lambda: blur.box_rows(planes_full, radius, 1))):
             a1, b1, b2, a2 = event_ms(one), event_ms(two), event_ms(two), event_ms(one)
-            design = "two-launch" if what == "gaussian" else "running-sum"
+            design = "window" if what == "gaussian" else "running-sum"
             print(f"[{card}] A/B {what} r={radius} on (3, {h}, {w}) planes: fused "
                   f"{what}_planar {a1:.4f}, {a2:.4f} ms; {design} {what}_rows "
                   f"{b1:.4f}, {b2:.4f} ms; fused / {design} "

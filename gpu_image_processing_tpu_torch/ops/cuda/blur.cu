@@ -5,13 +5,60 @@
 // dimension, is never blurred across images), and the horizontal result is
 // quantized to uint8, floor(x + 0.5), before the vertical pass reads it.
 //
-// gaussian_rows, gaussian_folded_rows (`separable` below) replace
+// gauss_window_rows (gaussian_rows, gaussian_folded_rows) replaces
 //   gpu_image_processing_tpu/ops/pallas/blur.py::_blur_kernel, weighted
 //   (level 2) and folded (level 4, r < 3), and its batched rows variant
-//   (blur.py:985).  Two launches, one thread per output byte, the u8
-//   intermediate in device memory, the scalar tap loops of taps.cuh:
-//   bit-exact against ops/interleaved.py, bound by instruction issue (about
-//   ten instructions a tap).
+//   (blur.py:985).  The function is 2r+1 taps a pass in a fixed order, each
+//   product and sum rounded (-fmad=false, __fmul_rn/__fadd_rn), so its bound
+//   on this card is its float operations issued one by one: a multiply and
+//   an add a tap and pass, 4(2r+1) an output, at 132 SMs x 128 lanes x
+//   1.98 GHz (0.0175 ms at r = 3 on 2146x3239x3, above the 0.0124 ms of its
+//   bytes).  The old kernel ran two launches (the intermediate through
+//   device memory), one thread an output, and about ten instructions a tap:
+//   a clamped index, a byte load, a weight load, a convert, the multiply and
+//   the add, with no loaded value reused.  The redesign removes that per-tap
+//   work:
+//   * One launch on box_window_rows's skeleton: a block of 256 threads owns
+//     a strip of at most 512 lanes over a band of rows (sized on the host to
+//     fill the SMs' block slots once) and walks it in chunks of kChunk
+//     output rows.  It stages input rows with stage_rows (16-byte cp.async
+//     copies, each pixel clamped at its image's edge), runs the horizontal
+//     pass into a window of 2r + kChunk quantized rows in shared memory, and
+//     runs the vertical pass from that window.  Two windows alternate: a chunk copies
+//     the last 2r rows of the previous one (16-byte copies) and computes
+//     only kChunk new horizontal rows, so a band recomputes 2r halo rows
+//     once, not per chunk.  The intermediate never reaches device memory.
+//   * The radius is a template parameter, so the tap loops unroll fully, at
+//     the weighted radii 1 to 15 (the API's) and 31 and the folded radii 1
+//     and 2 (level 4 folds only below 3); the other radii share one kernel
+//     per mode that takes the radius at run time and sums each output from
+//     its taps.  Twenty kernels, not 62: every radius specialised made
+//     blur.cu's build several times longer.  The taps are a kernel
+//     parameter, a struct of 63 floats passed by value: every multiply of
+//     an unrolled tap takes its weight as a constant-bank operand, with no
+//     load and no register, and each launch carries its own table.
+//   * Weighted, register windows: a thread converts each u8 value it reads
+//     to f32 once and adds its product into every output it reaches, in
+//     input order, which is tap order for each output (output k takes input
+//     j as tap j - k).  Horizontally a thread computes kRunH = 16 pixels of
+//     one channel from 16 + 2r values; vertically kChunk = 16 rows of two
+//     lanes from 16 + 2r rows of the window, 32 accumulators.
+//   * Folded: the pair sum x[t] + x[2r - t] comes before its multiply, so no
+//     input-order form exists; each output reads its taps from shared memory
+//     (integer pair sums, as the plain version's exact f32 sums of u8
+//     values), in t order, then the centre tap.
+//   * u8 values become f32 on the FP32 unit (u8_to_f32: 2^23 + v less
+//     2^23) and sums become u8 by an exact round-down add (quantize_u8_int),
+//     not on the conversion unit, which runs at a quarter of the rate.
+//   * The next window's input rows are copied in with cp.async while the
+//     vertical pass of this window runs.
+//   SASS (tools/sass_counts.py, cuobjdump -sass of
+//   gauss_window_rows<gip::Weighted, 3>, sm_90a):
+//   the horizontal pass of a 16-pixel run is 442 instructions for 112 taps,
+//   3.9 a tap (112 FMUL; 150 FADD, of which 96 tap adds, 22 conversions and
+//   32 rounding adds; loads, stores and addresses); the vertical pass has
+//   224 FMUL and 300 FADD for its 32 outputs, with two shared loads and two
+//   conversions a row for 16 outputs.  The old kernel took about ten a tap.
 //
 // box_window_rows and box_wide_h/_v (box_rows) replace
 //   gpu_image_processing_tpu/ops/pallas/blur_mxu.py::_gauss_mxu_kernel in
@@ -28,20 +75,18 @@
 //     threads owns a strip of at most 512 lanes over a band of rows (sized
 //     on the host so that the grid fills the SMs' block slots once) and
 //     walks its virtual rows (y0 - r .. y0 + band + r, each clamped to the
-//     image) in chunks of kChunk: it stages the chunk's input
-//     rows in shared memory (16-byte loads where the strip's halo lies
-//     inside the row, byte loads clamped per pixel at the image's edges),
-//     runs a horizontal running sum along runs of kRun pixels of one channel
-//     (add the incoming tap, subtract the outgoing one), and writes the
-//     quantized rows into a shared ring of 2r + kChunk rows; then each
-//     thread adds the newest ring row to the column sums it holds in
-//     registers for 2 lanes, emits an output row, and subtracts the ring row
-//     2r back.  The intermediate never reaches device memory.  Work an
-//     output: about 2 loads and adds a pass, plus (2r+1)/kRun for the first
-//     window of each run and (band + 2r)/band for the halo rows a band
+//     image) in chunks of kChunk: it stages the chunk's input rows in shared
+//     memory (stage_rows), runs a horizontal running sum along runs of kRun
+//     pixels of one channel (add the incoming tap, subtract the outgoing
+//     one), and writes the quantized rows into a shared ring of 2r + kChunk
+//     rows; then each thread adds the newest ring row to the column sums it
+//     holds in registers for 2 lanes, emits an output row, and subtracts the
+//     ring row 2r back.  The intermediate never reaches device memory.  Work
+//     an output: about 2 loads and adds a pass, plus (2r+1)/kRun for the
+//     first window of each run and (band + 2r)/band for the halo rows a band
 //     recomputes.  What bounds it on the card is latency more than bytes:
 //     each chunk is three dependent phases between barriers, so the
-//     registers are capped (kBoxBlocksPerSM) to keep 4 blocks on an SM;
+//     registers are capped (kBlocksPerSM) to keep 4 blocks on an SM;
 //     uncapped, half as many fitted and it ran slower.
 //   * box_wide_h, box_wide_v, r > kBoxMaxRadius: the ring would pass the
 //     shared memory, so two launches through device memory, one thread per
@@ -87,6 +132,10 @@
 //   quantizing epilogues and the barriers between the three phases take
 //   its time.
 
+#include <algorithm>
+#include <array>
+#include <utility>
+
 #include <mma.h>
 #include <cuda_bf16.h>
 
@@ -95,93 +144,329 @@
 
 namespace {
 
+using gip::allow_shared;
 using gip::clamp_index;
 using gip::quantize_u8;
-using gip::taps_value;
 
-// -- gaussian_rows, gaussian_folded_rows: two passes --------------------------
+// -- the strip geometry of the one-launch kernels ----------------------------
 
-// Horizontal pass: taps step by whole pixels (C lanes), clamped per pixel.
-// blockIdx.z is the image of the batch.
-template <typename Mode>
-__global__ void blur_h(const uint8_t* __restrict__ src,
-                       uint8_t* __restrict__ dst, const float* __restrict__ w,
-                       int radius, int height, int width, int channels) {
-  const int lanes = width * channels;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
+constexpr int kBlockThreads = 256;
+constexpr int kStripLanes = 512;   // lanes a block's strip holds at most
+constexpr int kChunk = gip::kStageRows;   // rows staged at a time
+// Blocks an SM should hold: caps the registers at 64 a thread, since
+// latency, not issue, bounds each block's chunk loop.
+constexpr int kBlocksPerSM = 4;
+constexpr int kMinBandRows = 32;
+
+// The staged input of a strip: `run` divides the strip's pixels.
+struct Strip {
+  int strip_px;      // pixels of a strip
+  int in_len;        // bytes of a staged row: (strip_px + 2r) * C
+  int in_stride;     // in_len + 15 rounded to an odd multiple of 16
+  __host__ __device__ Strip(int radius, int channels, int run) {
+    strip_px = kStripLanes / channels / run * run;
+    if (strip_px < run) strip_px = run;
+    in_len = (strip_px + 2 * radius) * channels;
+    in_stride = (in_len + 15 + 15) / 16 * 16 | 16;   // rows on other banks
+  }
+};
+
+// -- gauss_window_rows: one launch, register windows, taps by value ----------
+
+constexpr int kMaxTaps = 63;        // 2r + 1, r <= 31 (MAX_KERNEL_TAPS)
+constexpr int kRunH = 16;           // pixels of one channel a thread computes
+constexpr int kGaussMaxChannels = kStripLanes / kRunH;   // 32
+// The taps, 2r + 1 of them, by value: a kernel parameter lies in the
+// constant bank.
+struct GaussTaps {
+  float w[kMaxTaps];
+};
+
+using gip::quantize_u8_int;
+using gip::u8_to_f32;
+
+struct GaussGeometry {
+  Strip strip;
+  int win_rows;      // 2r + kChunk quantized horizontal rows
+  __host__ __device__ GaussGeometry(int radius, int channels)
+      : strip(radius, channels, kRunH), win_rows(2 * radius + kChunk) {}
+  __host__ __device__ int bytes() const {
+    return kChunk * strip.in_stride + 2 * win_rows * kStripLanes;
+  }
+};
+
+// Weighted, input order: value J of a run adds its tap J - k to each output
+// k it reaches.
+template <int R, int K, int J>
+__device__ __forceinline__ void add_input(float (&acc)[K], float v,
+                                          const GaussTaps& taps) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (J - k >= 0 && J - k <= 2 * R) {
+      const float term = __fmul_rn(v, taps.w[J - k]);
+      acc[k] = J == k ? term : __fadd_rn(acc[k], term);
+    }
+  }
+}
+
+// One output from its taps, x(t) the u8 value of tap t, in the order of
+// the mode; the loops unroll where the radius is a constant.
+//   Folded: sum over t < r of (x[t] + x[2r - t]) * w[t] in t order, then
+//   + x[r] * w[r] (the pair sum is exact);
+//   Weighted: sum over t of x[t] * w[t] in t order (the radii that have no
+//   kernel of their own; the others take the input order of add_input).
+template <typename Mode, typename Load>
+__device__ __forceinline__ float tap_sum(const Load& x, int radius,
+                                         const GaussTaps& taps) {
+  float acc = 0.0f;
+  if constexpr (std::is_same_v<Mode, gip::Folded>) {
+#pragma unroll 4
+    for (int t = 0; t < radius; ++t) {
+      const float term =
+          __fmul_rn(u8_to_f32(x(t) + x(2 * radius - t)), taps.w[t]);
+      acc = t == 0 ? term : __fadd_rn(acc, term);
+    }
+    return __fadd_rn(acc, __fmul_rn(u8_to_f32(x(radius)), taps.w[radius]));
+  } else {
+#pragma unroll 4
+    for (int t = 0; t <= 2 * radius; ++t) {
+      const float term = __fmul_rn(u8_to_f32(x(t)), taps.w[t]);
+      acc = t == 0 ? term : __fadd_rn(acc, term);
+    }
+    return acc;
+  }
+}
+
+template <int R, int J, int K>
+__device__ __forceinline__ void weighted_run(float (&acc)[K],
+                                             const uint8_t* x, int step,
+                                             const GaussTaps& taps) {
+  if constexpr (J < K + 2 * R) {
+    add_input<R, K, J>(acc, u8_to_f32(x[J * step]), taps);
+    weighted_run<R, J + 1, K>(acc, x, step, taps);
+  }
+}
+
+// Weighted with its radius R as a constant (R > 0) takes the input order of
+// register windows; the folded mode, and the weighted radii that have no
+// kernel of their own (R = 0), sum each output from its taps.
+template <typename Mode, int R>
+constexpr bool kInputOrder = std::is_same_v<Mode, gip::Weighted> && R > 0;
+
+// Horizontal pass of `nrows` staged rows into window rows 0.. of `win`: a
+// thread takes one (channel, run of kRunH pixels) pair, channel fastest (a
+// strip has at most kStripLanes / kRunH = 32 pairs), for every eighth row.
+// Staged pixel j is strip pixel j - r, so output pixel p reads staged
+// pixels p .. p + 2r.
+constexpr int kPairs = kStripLanes / kRunH;
+constexpr int kRowGroups = kBlockThreads / kPairs;   // 8
+template <typename Mode, int R>
+__device__ __forceinline__ void gauss_horizontal(
+    const uint8_t* in, const int* shift, uint8_t* win, const Strip& s,
+    int channels, int valid_px, int nrows, int radius, const GaussTaps& taps) {
+  const int C = channels;
+  const int pair = threadIdx.x % kPairs;
+  const int ch = pair % C;
+  const int p0 = pair / C * kRunH;
+  if (p0 >= valid_px) return;
+  const int n = min(kRunH, valid_px - p0);
+  for (int k = threadIdx.x / kPairs; k < nrows; k += kRowGroups) {
+    const uint8_t* x = in + k * s.in_stride + shift[k] + p0 * C + ch;
+    uint8_t* h = win + k * kStripLanes + p0 * C + ch;
+    if constexpr (kInputOrder<Mode, R>) {
+      float acc[kRunH];
+      weighted_run<R, 0, kRunH>(acc, x, C, taps);
+#pragma unroll
+      for (int i = 0; i < kRunH; ++i) {
+        if (i < n) h[i * C] = static_cast<uint8_t>(quantize_u8_int(acc[i]));
+      }
+    } else {
+#pragma unroll 4
+      for (int i = 0; i < n; ++i) {
+        const uint8_t* xi = x + i * C;
+        h[i * C] = static_cast<uint8_t>(quantize_u8_int(tap_sum<Mode>(
+            [&](int t) -> unsigned { return xi[t * C]; }, radius, taps)));
+      }
+    }
+  }
+}
+
+template <int R, int J, int K>
+__device__ __forceinline__ void weighted_column(float (&a0)[K], float (&a1)[K],
+                                                const uint8_t* col,
+                                                const GaussTaps& taps) {
+  if constexpr (J < K + 2 * R) {
+    add_input<R, K, J>(a0, u8_to_f32(col[J * kStripLanes]), taps);
+    add_input<R, K, J>(a1, u8_to_f32(col[J * kStripLanes + kBlockThreads]), taps);
+    weighted_column<R, J + 1, K>(a0, a1, col, taps);
+  }
+}
+
+// Vertical pass of a whole window: output row yc + k (k < rows_out) of the
+// strip's lanes lane and lane + kBlockThreads reads window rows k .. k + 2R.
+template <typename Mode, int R>
+__device__ __forceinline__ void gauss_vertical(const uint8_t* win,
+                                               uint8_t* out, int lanes,
+                                               int valid_lanes, int rows_out,
+                                               int radius, const GaussTaps& taps) {
+  const int lane0 = threadIdx.x;
+  const int lane1 = threadIdx.x + kBlockThreads;
+  const uint8_t* col = win + lane0;
+  if constexpr (kInputOrder<Mode, R>) {
+    float a0[kChunk], a1[kChunk];
+    weighted_column<R, 0, kChunk>(a0, a1, col, taps);
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      if (k < rows_out) {
+        uint8_t* o = out + static_cast<size_t>(k) * lanes;
+        if (lane0 < valid_lanes) o[lane0] = static_cast<uint8_t>(quantize_u8_int(a0[k]));
+        if (lane1 < valid_lanes) o[lane1] = static_cast<uint8_t>(quantize_u8_int(a1[k]));
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int k = 0; k < rows_out; ++k) {
+      const uint8_t* c0 = col + k * kStripLanes;
+      uint8_t* o = out + static_cast<size_t>(k) * lanes;
+      if (lane0 < valid_lanes) {
+        o[lane0] = static_cast<uint8_t>(quantize_u8_int(tap_sum<Mode>(
+            [&](int t) -> unsigned { return c0[t * kStripLanes]; }, radius,
+            taps)));
+      }
+      if (lane1 < valid_lanes) {
+        o[lane1] = static_cast<uint8_t>(quantize_u8_int(tap_sum<Mode>(
+            [&](int t) -> unsigned { return c0[t * kStripLanes + kBlockThreads]; },
+            radius, taps)));
+      }
+    }
+  }
+}
+
+// blockIdx.z is the image of the batch; band_rows is a multiple of kChunk.
+// R is the radius, or 0 for a kernel that takes it at run time.
+// Registers: 64 a thread (kBlocksPerSM blocks) to r = 8; past it the window
+// of 2r + kChunk rows lets fewer blocks fit and the unrolled taps want
+// more registers, so 3 blocks.
+template <typename Mode, int R>
+__global__ void __launch_bounds__(kBlockThreads, R <= 8 ? kBlocksPerSM : 3)
+gauss_window_rows(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
+                  const __grid_constant__ GaussTaps taps, int radius, int height,
+                  int width, int channels, int band_rows) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ int shift[kChunk];
+  const int r = R > 0 ? R : radius;
+  const GaussGeometry g(r, channels);
+  uint8_t* in = smem;                                // kChunk staged rows
+  // The two windows, by pointer arithmetic: an indexed array of the two
+  // pointers would live in local memory and make every access generic.
+  uint8_t* wins = smem + kChunk * g.strip.in_stride;
+  const int win_bytes = g.win_rows * kStripLanes;
+  const int C = channels;
+  const int lanes = width * C;
+  const int px0 = blockIdx.x * g.strip.strip_px;
+  const int y0 = blockIdx.y * band_rows;
+  const int y_end = min(y0 + band_rows, height);
+  const int valid_px = min(g.strip.strip_px, width - px0);
+  const int valid_lanes = valid_px * C;
   const size_t image = static_cast<size_t>(blockIdx.z) * height * lanes;
   src += image;
-  dst += image;
-  const int pix = lane / channels;
-  const int ch = lane - pix * channels;
-  for (int y = blockIdx.y; y < height; y += gridDim.y) {
-    const uint8_t* row = src + static_cast<size_t>(y) * lanes;
-    const auto load = [&](int t) -> int {
-      return row[clamp_index(pix + t - radius, width) * channels + ch];
-    };
-    dst[static_cast<size_t>(y) * lanes + lane] = static_cast<uint8_t>(
-        quantize_u8(taps_value<Mode>(load, w, 0.0f, radius)));
+  dst += image + px0 * C;
+  const int g0 = (px0 - r) * C;   // row lane of staged byte 0
+  const auto stage = [&](int v0, int nrows) {
+    gip::stage_rows<kBlockThreads>(src, in, shift, g.strip.in_stride, g0,
+                                   g.strip.in_len, lanes, C, v0, nrows, height);
+  };
+
+  // Window row j of the chunk of output rows yc .. yc + kChunk - 1 is
+  // virtual row yc - r + j (the image row clamp of it).  The first window
+  // is staged and filtered kChunk rows at a time.
+  for (int j0 = 0; j0 < g.win_rows; j0 += kChunk) {
+    const int nrows = min(kChunk, g.win_rows - j0);
+    if (j0 != 0) __syncthreads();   // the last horizontal pass read `in`
+    stage(y0 - r + j0, nrows);
+    gip::wait_async_copies();
+    __syncthreads();
+    gauss_horizontal<Mode, R>(in, shift, wins + j0 * kStripLanes, g.strip, C,
+                              valid_px, nrows, r, taps);
+  }
+  for (int yc = y0, cur = 0;; yc += kChunk, cur ^= 1) {
+    const uint8_t* win = wins + cur * win_bytes;
+    __syncthreads();   // this window is whole, and `in` is free
+    const int next = yc + kChunk;
+    const bool more = next < y_end;
+    // The next window's kChunk new rows (virtual rows next + r ..) are
+    // copied in while this window's vertical pass runs.
+    if (more) stage(next + r, kChunk);
+    gauss_vertical<Mode, R>(win, dst + static_cast<size_t>(yc) * lanes, lanes,
+                            valid_lanes, min(kChunk, y_end - yc), r, taps);
+    if (!more) break;
+    // The next window: the last 2r rows of this one, then the new rows.
+    uint8_t* following = wins + (cur ^ 1) * win_bytes;
+    const uint4* from = reinterpret_cast<const uint4*>(win + kChunk * kStripLanes);
+    uint4* to = reinterpret_cast<uint4*>(following);
+    for (int e = threadIdx.x; e < 2 * r * kStripLanes / 16; e += kBlockThreads) {
+      to[e] = from[e];
+    }
+    gip::wait_async_copies();
+    __syncthreads();
+    gauss_horizontal<Mode, R>(in, shift, following + 2 * r * kStripLanes,
+                              g.strip, C, valid_px, kChunk, r, taps);
   }
 }
 
-// Vertical pass: taps step by whole rows, clamped to the image's own rows.
-// blockIdx.z is the image of the batch.
-template <typename Mode>
-__global__ void blur_v(const uint8_t* __restrict__ src,
-                       uint8_t* __restrict__ dst, const float* __restrict__ w,
-                       int radius, int height, int lanes) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  const size_t image = static_cast<size_t>(blockIdx.z) * height * lanes;
-  src += image + lane;
-  dst += image;
-  for (int y = blockIdx.y; y < height; y += gridDim.y) {
-    const auto load = [&](int t) -> int {
-      return src[static_cast<size_t>(clamp_index(y + t - radius, height)) * lanes];
-    };
-    dst[static_cast<size_t>(y) * lanes + lane] = static_cast<uint8_t>(
-        quantize_u8(taps_value<Mode>(load, w, 0.0f, radius)));
-  }
-}
-
-template <typename Mode>
-int separable(const uint8_t* src, uint8_t* tmp, uint8_t* dst, const float* w,
-              int radius, int batch, int height, int width, int channels,
-              void* stream) {
-  const int lanes = width * channels;
-  const dim3 grid = gip::rows_grid(lanes, height, batch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  blur_h<Mode><<<grid, gip::kThreads, 0, s>>>(src, tmp, w, radius, height,
-                                              width, channels);
-  cudaError_t err = cudaGetLastError();
+template <typename Mode, int R>
+int launch_gauss_r(const uint8_t* src, uint8_t* dst, const float* weights,
+                   int radius, int batch, int height, int width, int channels,
+                   cudaStream_t stream) {
+  constexpr auto kernel = gauss_window_rows<Mode, R>;
+  const GaussGeometry g(radius, channels);
+  cudaError_t err = allow_shared<kernel>(g.bytes());
   if (err != cudaSuccess) return err;
-  blur_v<Mode><<<grid, gip::kThreads, 0, s>>>(tmp, dst, w, radius, height,
-                                              lanes);
+  const int columns = (width + g.strip.strip_px - 1) / g.strip.strip_px;
+  int band_rows = 0;
+  err = gip::band_rows_for<kernel>(kBlockThreads, g.bytes(),
+                                   static_cast<long long>(columns) * batch,
+                                   height, kChunk, kMinBandRows, &band_rows);
+  if (err != cudaSuccess) return err;
+  GaussTaps taps = {};
+  std::copy(weights, weights + 2 * radius + 1, taps.w);
+  kernel<<<dim3(columns, (height + band_rows - 1) / band_rows, batch),
+           kBlockThreads, g.bytes(), stream>>>(src, dst, taps, radius, height,
+                                               width, channels, band_rows);
   return cudaGetLastError();
 }
 
-// Let `kernel` take `bytes` of dynamic shared memory on the current device
-// (above 48 KB a launch must opt in).  The attribute is raised, never
-// lowered, and set only when a launch needs more than before: a host call
-// on every launch would cost more than the kernels.
-template <auto kernel>
-cudaError_t allow_shared(int bytes) {
-  constexpr int kMaxDevices = 64;
-  static int allowed[kMaxDevices] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device < kMaxDevices && bytes <= allowed[device]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
+using GaussLaunch = int (*)(const uint8_t*, uint8_t*, const float*, int, int,
+                            int, int, int, cudaStream_t);
+
+// The radii with a kernel of their own: the weighted taps at the API's radii
+// (1 to 15) and the cap, 31; the folded taps below r = 3, the only radii
+// level 4 folds.  Every other radius takes the run-time kernel (R = 0),
+// which keeps the build to 20 kernels.
+template <typename Mode>
+constexpr bool specialised(int r) {
+  return std::is_same_v<Mode, gip::Weighted> ? r <= 15 || r == 31 : r <= 2;
+}
+
+template <typename Mode, int... Rs>
+constexpr std::array<GaussLaunch, sizeof...(Rs)> gauss_table(
+    std::integer_sequence<int, Rs...>) {
+  return {&launch_gauss_r<Mode, specialised<Mode>(Rs + 1) ? Rs + 1 : 0>...};
+}
+
+// The launch of radius r is entry r - 1.
+template <typename Mode>
+int launch_gauss(const uint8_t* src, uint8_t* dst, const float* weights,
+                 int radius, int batch, int height, int width, int channels,
+                 void* stream) {
+  static constexpr auto table =
+      gauss_table<Mode>(std::make_integer_sequence<int, kMaxTaps / 2>());
+  if (radius < 1 || radius > kMaxTaps / 2 || channels < 1 ||
+      channels > kGaussMaxChannels) {
+    return cudaErrorInvalidValue;
   }
-  if (err == cudaSuccess && device < kMaxDevices) allowed[device] = bytes;
-  return err;
+  return table[radius - 1](src, dst, weights, radius, batch, height, width,
+                           channels, static_cast<cudaStream_t>(stream));
 }
 
 __device__ __forceinline__ uint8_t box_value(int sum, float inv) {
@@ -191,38 +476,25 @@ __device__ __forceinline__ uint8_t box_value(int sum, float inv) {
 
 // -- box_window_rows: one launch, running sums, a shared ring ----------------
 
-constexpr int kBoxThreads = 256;
 constexpr int kBoxLanes = 2;                          // lanes a thread sums
-constexpr int kStripLanes = kBoxThreads * kBoxLanes;  // 512
-constexpr int kChunk = 16;       // virtual rows staged at a time
 constexpr int kRun = 32;         // pixels of one horizontal running sum
 constexpr int kBoxMaxRadius = 64;
-// Blocks an SM should hold: caps the registers at 64 a thread, since
-// latency, not issue, bounds each block's chunk loop.
-constexpr int kBoxBlocksPerSM = 4;
-constexpr int kMinBandRows = 32;
 constexpr int kBoxMaxChannels = kStripLanes / kRun;   // 16
 
 struct BoxGeometry {
-  int strip_px;      // pixels of a strip
-  int in_len;        // bytes of a staged row: (strip_px + 2r) * C
-  int in_stride;     // in_len + 15 rounded to an odd multiple of 16
+  Strip strip;
   int ring_rows;     // 2r + kChunk
   int ring_stride;   // strip_px * C rounded to 16
-  __host__ __device__ BoxGeometry(int radius, int channels) {
-    strip_px = kStripLanes / channels / kRun * kRun;
-    if (strip_px < kRun) strip_px = kRun;
-    in_len = (strip_px + 2 * radius) * channels;
-    in_stride = (in_len + 15 + 15) / 16 * 16 | 16;   // rows on other banks
-    ring_rows = 2 * radius + kChunk;
-    ring_stride = (strip_px * channels + 15) / 16 * 16;
-  }
+  __host__ __device__ BoxGeometry(int radius, int channels)
+      : strip(radius, channels, kRun),
+        ring_rows(2 * radius + kChunk),
+        ring_stride((strip.strip_px * channels + 15) / 16 * 16) {}
   __host__ __device__ int bytes() const {
-    return kChunk * in_stride + ring_rows * ring_stride;
+    return kChunk * strip.in_stride + ring_rows * ring_stride;
   }
 };
 
-__global__ void __launch_bounds__(kBoxThreads, kBoxBlocksPerSM)
+__global__ void __launch_bounds__(kBlockThreads, kBlocksPerSM)
 box_window_rows(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
                 float inv, int radius, int height, int width, int channels,
                 int band_rows) {
@@ -230,12 +502,12 @@ box_window_rows(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
   __shared__ int shift[kChunk];
   const BoxGeometry g(radius, channels);
   uint8_t* in = smem;                        // kChunk staged input rows
-  uint8_t* ring = smem + kChunk * g.in_stride;  // quantized horizontal rows
+  uint8_t* ring = smem + kChunk * g.strip.in_stride;  // quantized horizontal rows
   const int C = channels;
   const int lanes = width * C;
-  const int px0 = blockIdx.x * g.strip_px;
+  const int px0 = blockIdx.x * g.strip.strip_px;
   const int y0 = blockIdx.y * band_rows;
-  const int valid_px = min(g.strip_px, width - px0);
+  const int valid_px = min(g.strip.strip_px, width - px0);
   const int valid_lanes = valid_px * C;
   const size_t image = static_cast<size_t>(blockIdx.z) * height * lanes;
   src += image;
@@ -250,7 +522,7 @@ box_window_rows(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
   // threadIdx.x % kChunk of the chunk and the (channel, run) pair
   // threadIdx.x / kChunk in channel-major order; a strip has at most
   // kStripLanes / kRun pairs.
-  static_assert(kChunk * (kStripLanes / kRun) == kBoxThreads,
+  static_assert(kChunk * (kStripLanes / kRun) == kBlockThreads,
                 "one running sum a thread");
   const int task_k = threadIdx.x % kChunk;
   const int pair = threadIdx.x / kChunk;
@@ -264,56 +536,9 @@ box_window_rows(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
 
   for (int vc = v_begin; vc < v_end; vc += kChunk) {
     const int nrows = min(kChunk, v_end - vc);
-    // Stage: staged byte e of row k, at in[k * in_stride + shift[k] + e],
-    // is lane g0 + e of image row clamp(vc + k), its pixel clamped to
-    // [0, W - 1].  A strip whose halo lies inside the row copies it with
-    // 16-byte loads (shift[k] aligns them in shared memory; the ragged ends
-    // go byte by byte); an edge strip clamps byte by byte, with kChunk loads
-    // in flight a thread (g0 is a multiple of C, so the channel is e % C).
-    if (g0 >= 0 && g0 + g.in_len <= lanes) {
-#pragma unroll 2
-      for (int k = threadIdx.x / 32; k < nrows; k += kBoxThreads / 32) {
-        const uint8_t* a =
-            src + static_cast<size_t>(clamp_index(vc + k, height)) * lanes + g0;
-        const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(a) & 15);
-        const uint8_t* base = a - sh;   // 16-byte aligned
-        uint8_t* staged = in + k * g.in_stride;
-        const int end = sh + g.in_len;
-        if (threadIdx.x % 32 == 0) shift[k] = sh;
-        const int vec_begin = (sh + 15) & ~15;   // whole 16-byte chunks
-        const int vec_end = end & ~15;
-        for (int c = vec_begin + threadIdx.x % 32 * 16; c < vec_end; c += 32 * 16) {
-          *reinterpret_cast<uint4*>(staged + c) =
-              __ldg(reinterpret_cast<const uint4*>(base + c));
-        }
-        // The ragged ends, under 16 bytes each: a byte a lane.
-        const int head = sh + threadIdx.x % 32;
-        if (head < min(vec_begin, end)) staged[head] = base[head];
-        const int tail = max(vec_end, vec_begin) + threadIdx.x % 32;
-        if (tail < end) staged[tail] = base[tail];
-      }
-    } else {
-      if (threadIdx.x < kChunk) shift[threadIdx.x] = 0;
-      for (int e = threadIdx.x; e < g.in_len; e += kBoxThreads) {
-        int at = g0 + e;
-        if (at < 0) {
-          at = e % C;
-        } else if (at >= lanes) {
-          at = lanes - C + e % C;
-        }
-        uint8_t v[kChunk];
-#pragma unroll
-        for (int k = 0; k < kChunk; ++k) {
-          v[k] = k < nrows
-                     ? src[static_cast<size_t>(clamp_index(vc + k, height)) * lanes + at]
-                     : 0;
-        }
-#pragma unroll
-        for (int k = 0; k < kChunk; ++k) {
-          if (k < nrows) in[k * g.in_stride + e] = v[k];
-        }
-      }
-    }
+    gip::stage_rows<kBlockThreads, false>(src, in, shift, g.strip.in_stride, g0,
+                                          g.strip.in_len, lanes, C, vc, nrows,
+                                          height);
     __syncthreads();
 
     // Horizontal: one running sum a (row, channel, run of kRun pixels).
@@ -324,7 +549,7 @@ box_window_rows(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
     if (task_k < nrows && task_p0 < task_end) {
       const int slot_k = slot0 + task_k < g.ring_rows
                              ? slot0 + task_k : slot0 + task_k - g.ring_rows;
-      const uint8_t* x = in + task_k * g.in_stride + shift[task_k] + task_ch;
+      const uint8_t* x = in + task_k * g.strip.in_stride + shift[task_k] + task_ch;
       uint8_t* h = ring + slot_k * g.ring_stride + task_ch;
       int sum = 0;
 #pragma unroll 8
@@ -358,7 +583,7 @@ box_window_rows(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
       uint8_t* out = dst + static_cast<size_t>(vc + k - radius) * lanes;
 #pragma unroll
       for (int i = 0; i < kBoxLanes; ++i) {
-        const int j = threadIdx.x + i * kBoxThreads;
+        const int j = threadIdx.x + i * kBlockThreads;
         if (j < valid_lanes) {
           colsum[i] += add[j];
           if (emit) {
@@ -381,28 +606,14 @@ int launch_box_window(const uint8_t* src, uint8_t* dst, float inv, int radius,
   const BoxGeometry g(radius, channels);
   cudaError_t err = allow_shared<box_window_rows>(g.bytes());
   if (err != cudaSuccess) return err;
-  // The band of rows a block walks: as many bands as fill the SMs' block
-  // slots once (a block's time grows with its rows, a partial last wave
-  // idles most SMs), at least kMinBandRows (the halo rows a band
-  // recomputes cost (band + 2r) / band).  The result does not depend on it.
-  int device = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, box_window_rows, kBoxThreads, g.bytes());
-  }
+  const int columns = (width + g.strip.strip_px - 1) / g.strip.strip_px;
+  int band_rows = 0;
+  err = gip::band_rows_for<box_window_rows>(
+      kBlockThreads, g.bytes(), static_cast<long long>(columns) * batch, height,
+      16, kMinBandRows, &band_rows);
   if (err != cudaSuccess) return err;
-  const long long columns =
-      static_cast<long long>((width + g.strip_px - 1) / g.strip_px) * batch;
-  const long long bands = std::max(1LL, sms * std::max(per_sm, 1) / columns);
-  int band_rows = static_cast<int>((height + bands - 1) / bands + 15) / 16 * 16;
-  band_rows = std::max(band_rows, kMinBandRows);
-  const dim3 grid((width + g.strip_px - 1) / g.strip_px,
-                  (height + band_rows - 1) / band_rows, batch);
-  box_window_rows<<<grid, kBoxThreads, g.bytes(),
+  box_window_rows<<<dim3(columns, (height + band_rows - 1) / band_rows, batch),
+                    kBlockThreads, g.bytes(),
                     static_cast<cudaStream_t>(stream)>>>(
       src, dst, inv, radius, height, width, channels, band_rows);
   return cudaGetLastError();
@@ -704,21 +915,23 @@ int launch_band(const uint8_t* src, uint8_t* dst, const float* hi,
 
 }  // namespace
 
-// src, tmp, dst: (B, H, W*C) uint8.  weights: (2r+1,) float32 on the device.
-extern "C" int gip_gaussian_rows(const uint8_t* src, uint8_t* tmp, uint8_t* dst,
+// src, dst: (B, H, W*C) uint8 on the device.  weights: (2r+1,) float32 on
+// the host, copied into the launch's parameters.  1 <= r <= 31,
+// 1 <= C <= kGaussMaxChannels (32).
+extern "C" int gip_gaussian_rows(const uint8_t* src, uint8_t* dst,
                                  const float* weights, int radius, int batch,
                                  int height, int width, int channels,
                                  void* stream) {
-  return separable<gip::Weighted>(src, tmp, dst, weights, radius, batch,
-                                  height, width, channels, stream);
+  return launch_gauss<gip::Weighted>(src, dst, weights, radius, batch, height,
+                                     width, channels, stream);
 }
 
-extern "C" int gip_gaussian_folded_rows(const uint8_t* src, uint8_t* tmp,
-                                        uint8_t* dst, const float* weights,
-                                        int radius, int batch, int height,
-                                        int width, int channels, void* stream) {
-  return separable<gip::Folded>(src, tmp, dst, weights, radius, batch, height,
-                                width, channels, stream);
+extern "C" int gip_gaussian_folded_rows(const uint8_t* src, uint8_t* dst,
+                                        const float* weights, int radius,
+                                        int batch, int height, int width,
+                                        int channels, void* stream) {
+  return launch_gauss<gip::Folded>(src, dst, weights, radius, batch, height,
+                                   width, channels, stream);
 }
 
 // hi, lo: (2r+1,) float32 tables of exact bf16 values, made on the host;
@@ -732,7 +945,7 @@ extern "C" int gip_gaussian_band_rows(const uint8_t* src, uint8_t* dst,
 }
 
 // inv: the f32 reciprocal 1/(2r+1), computed on the host.  The window
-// kernel takes 1 <= r <= 64 and 1 <= C <= 32; the wide one r > 64 and
+// kernel takes 1 <= r <= 64 and 1 <= C <= 16; the wide one r > 64 and
 // scratch of the image's size.
 extern "C" int gip_box_window_rows(const uint8_t* src, uint8_t* dst, float inv,
                                    int radius, int batch, int height,

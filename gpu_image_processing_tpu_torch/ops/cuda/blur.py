@@ -2,8 +2,11 @@
 
 * `gaussian_rows` replaces the TPU kernel `ops/pallas/blur.py::_blur_kernel`
   (level 2); `gaussian_folded_rows` replaces it with `folded=True` (level 4,
-  r < 3).  Two launches, scalar tap loops, bit-exact, bound by instruction
-  issue.
+  r < 3).  One launch (`gauss_window_rows`): the intermediate in shared
+  memory, the radius a template parameter at the radii the paths use, the
+  taps a kernel parameter passed by value, register windows for the
+  level-2 tap order; bit-exact.  1 <= r <= `GAUSS_MAX_RADIUS`, at most
+  `GAUSS_MAX_CHANNELS` channels on the card.
 * `gaussian_band_rows` replaces `ops/pallas/blur_mxu.py::_gauss_mxu_kernel`
   in gaussian mode (level 4, r >= 3): the bf16 hi + lo band products of
   both passes on the tensor cores in one launch (`band_mma_rows`).  The
@@ -36,8 +39,8 @@ from . import LAUNCHES, build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "gip_gaussian_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gip_gaussian_folded_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gip_gaussian_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gip_gaussian_folded_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gip_gaussian_band_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gip_box_window_rows": [_P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _P],
     "gip_box_wide_rows": [_P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _P],
@@ -45,6 +48,11 @@ _SIGNATURES = {
 
 #: The grid's z dimension, which carries the batch, holds at most this many.
 MAX_BATCH = 65535
+#: The gaussian kernel's radii: 2r + 1 <= MAX_KERNEL_TAPS (core/config.py);
+#: its channels: a thread computes 16 pixels of one channel, and a strip
+#: holds at most 512 lanes.
+GAUSS_MAX_RADIUS = 31
+GAUSS_MAX_CHANNELS = 32
 #: Box radii up to this run in one launch (a shared ring of 2r + 16 rows);
 #: wider ones take the two-launch running sum.
 BOX_WINDOW_MAX_RADIUS = 64
@@ -85,24 +93,32 @@ def check_rows(rows: torch.Tensor, channels: int) -> tuple[int, int, int]:
 
 
 def check_table(table: torch.Tensor, rows: torch.Tensor, radius: int,
-                 name: str) -> None:
-    if (table.device != rows.device or table.dtype != torch.float32
+                 name: str, on_host: bool = False) -> None:
+    """Raise unless `table` is a contiguous (2r+1,) float32 tensor on
+    `rows`' device (or on the host, if `on_host`)."""
+    device = table.device if on_host and table.device.type == "cpu" else rows.device
+    if (table.device != device or table.dtype != torch.float32
             or tuple(table.shape) != (2 * radius + 1,)
             or not table.is_contiguous()):
         raise ValueError(
             f"{name} must be a contiguous ({2 * radius + 1},) float32 tensor "
-            f"on {rows.device}")
+            f"on {rows.device}" + (" or the host" if on_host else ""))
 
 
 def _launch(fn_name: str, rows: torch.Tensor, channels: int, radius: int,
-            *tables_or_scale, scratch: bool = True) -> torch.Tensor:
+            *tables_or_scale, scratch: bool = False,
+            taps: torch.Tensor | None = None) -> torch.Tensor:
     """Launch one of blur.cu's functions on `rows`: input, scratch of the
-    image's size (unless `scratch` is False), output, its weight tables (or
-    the box's scale), then radius, batch, height, width, channels."""
+    image's size (if `scratch`), output, its weight tables (or the box's
+    scale; first, `taps` as a host array, read once the library has
+    loaded), then radius, batch, height, width, channels."""
     batch, height, width = check_rows(rows, channels)
     if radius < 1:
         raise ValueError(f"radius must be >= 1; got {radius}")
     lib = build.load("blur", rows.device, _SIGNATURES)
+    if taps is not None:
+        tables_or_scale = ((ctypes.c_float * taps.numel())(*taps.tolist()),
+                           *tables_or_scale)
     out = torch.empty_like(rows)
     buffers = [rows.data_ptr(), out.data_ptr()]
     if scratch:
@@ -115,29 +131,40 @@ def _launch(fn_name: str, rows: torch.Tensor, channels: int, radius: int,
     return out
 
 
+def _launch_gaussian(fn_name: str, rows: torch.Tensor, weights: torch.Tensor,
+                     radius: int, channels: int) -> torch.Tensor:
+    check_table(weights, rows, radius, "weights", on_host=True)
+    if radius > GAUSS_MAX_RADIUS or channels > GAUSS_MAX_CHANNELS:
+        raise ValueError(f"the gaussian kernel takes r <= {GAUSS_MAX_RADIUS} "
+                         f"and at most {GAUSS_MAX_CHANNELS} channels; got "
+                         f"r = {radius}, {channels} channels")
+    return _launch(fn_name, rows, channels, radius, taps=weights)
+
+
 def gaussian_rows(rows: torch.Tensor, weights: torch.Tensor, radius: int,
                   channels: int) -> torch.Tensor:
     """Separable gaussian blur, level-2 numerics (taps in order).
 
-    `weights` is the (2r+1,) float32 table on the same device as `rows`.
+    `weights` is the (2r+1,) float32 table, on the host or on `rows`'
+    device.  The kernel takes its values by value, as launch parameters: a
+    table on the card is read back first, which waits for the card, so a
+    caller that launches often passes it on the host.
     """
     if rows.device.type == "cpu":
         return gaussian_rows_plain(rows, weights, radius, channels)
-    check_table(weights, rows, radius, "weights")
-    out = _launch("gip_gaussian_rows", rows, channels, radius,
-                  weights.data_ptr())
+    out = _launch_gaussian("gip_gaussian_rows", rows, weights, radius, channels)
     LAUNCHES["gaussian_rows"] += 1
     return out
 
 
 def gaussian_folded_rows(rows: torch.Tensor, weights: torch.Tensor,
                          radius: int, channels: int) -> torch.Tensor:
-    """Separable gaussian blur with symmetric tap pairs (level 4, r < 3)."""
+    """Separable gaussian blur with symmetric tap pairs (level 4, r < 3);
+    `weights` as in `gaussian_rows`."""
     if rows.device.type == "cpu":
         return gaussian_folded_rows_plain(rows, weights, radius, channels)
-    check_table(weights, rows, radius, "weights")
-    out = _launch("gip_gaussian_folded_rows", rows, channels, radius,
-                  weights.data_ptr())
+    out = _launch_gaussian("gip_gaussian_folded_rows", rows, weights, radius,
+                           channels)
     LAUNCHES["gaussian_folded_rows"] += 1
     return out
 
@@ -159,7 +186,7 @@ def gaussian_band_rows(rows: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
                          f"at most {BAND_MAX_CHANNELS} channels; got r = "
                          f"{radius}, {channels} channels")
     out = _launch("gip_gaussian_band_rows", rows, channels, radius,
-                  hi.data_ptr(), lo.data_ptr(), scratch=False)
+                  hi.data_ptr(), lo.data_ptr())
     LAUNCHES["gaussian_band_rows"] += 1
     return out
 
@@ -174,9 +201,9 @@ def box_rows(rows: torch.Tensor, radius: int, channels: int) -> torch.Tensor:
                          f"channels on the card; got {channels}")
     inv = float(box_inv_taps_f32(radius))
     if radius <= BOX_WINDOW_MAX_RADIUS:
-        out = _launch("gip_box_window_rows", rows, channels, radius, inv,
-                      scratch=False)
+        out = _launch("gip_box_window_rows", rows, channels, radius, inv)
     else:
-        out = _launch("gip_box_wide_rows", rows, channels, radius, inv)
+        out = _launch("gip_box_wide_rows", rows, channels, radius, inv,
+                      scratch=True)
     LAUNCHES["box_rows"] += 1
     return out

@@ -25,8 +25,8 @@
 // all kTileH + 2r rows into a u8 shared tile; then, after a barrier, the
 // vertical pass from that tile into device memory.  The intermediate never
 // leaves the SM, so the kernel reads the image once and writes it once: it
-// is bound by those 2 N H W bytes (blur.cu's two-launch gaussian moves
-// twice as many).  Neighbouring blocks recompute the 2r halo rows of the
+// is bound by those 2 N H W bytes (a blur in two launches moves twice as
+// many).  Neighbouring blocks recompute the 2r halo rows of the
 // intermediate; the horizontal pass is row-local and deterministic, so the
 // values agree (the argument of spatial.py:100-104).  That recompute costs
 // (kTileH + 2r) / kTileH horizontal passes, 2.9 at r = 31.  Shared memory,

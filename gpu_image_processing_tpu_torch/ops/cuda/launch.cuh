@@ -1,5 +1,7 @@
-// Shared helpers of the hand-written kernels: the reference's rounding and
-// the plain C interface that Python loads with ctypes (ops/cuda/build.py).
+// Shared helpers of the hand-written kernels: the reference's rounding, the
+// staging of interleaved rows into shared memory, the launch-side helpers
+// (shared-memory opt-in, row bands) and the plain C interface that Python
+// loads with ctypes (ops/cuda/build.py).
 //
 // Every float operation below uses an `_rn` intrinsic, and the library is
 // also built with -fmad=false: a contracted multiply-add rounds once where
@@ -12,10 +14,6 @@
 
 namespace gip {
 
-constexpr int kThreads = 256;
-// gridDim.y limit; taller images loop over rows inside the kernel.
-constexpr int kMaxGridY = 65535;
-
 // (unsigned char)(x + 0.5f) of the reference for x >= 0: floor(x + 0.5)
 // clamped to [0, 255].  Not __float2int_rn: that rounds half to even.
 __device__ __forceinline__ float quantize_u8(float x) {
@@ -26,10 +24,152 @@ __device__ __forceinline__ int clamp_index(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-// x: lanes, y: rows (looped past kMaxGridY), z: the images of a batch.
-inline dim3 rows_grid(int lanes, int height, int batch) {
-  return dim3((lanes + kThreads - 1) / kThreads, std::min(height, kMaxGridY),
-              batch);
+// The f32 value of 0 <= v < 2^23 on the FP32 unit, not the conversion unit
+// (a quarter of the rate): 2^23 + v is exact in f32, so less 2^23 it is v.
+__device__ __forceinline__ float u8_to_f32(unsigned v) {
+  return __fsub_rn(__uint_as_float(0x4B000000u | v), 8388608.0f);
+}
+
+// quantize_u8 as an int, on the FP32 and integer units: t = x + 0.5 rounded
+// to nearest, as the reference rounds it; t + 1.5 * 2^23 rounded down is
+// floor(t) + 1.5 * 2^23 exactly while |t| < 2^22 (the ulp there is 1), so
+// its bits less those of 1.5 * 2^23 are floor(t); then clamped to [0, 255].
+// Equal to quantize_u8 for |x| < 2^22, which every blur sum keeps.
+__device__ __forceinline__ int quantize_u8_int(float x) {
+  const float f = __fadd_rd(__fadd_rn(x, 0.5f), 12582912.0f);
+  return min(max(__float_as_int(f) - 0x4B400000, 0), 255);
+}
+
+// One 16-byte copy from device to shared memory that does not wait for the
+// data (cp.async); both addresses 16-byte aligned.
+__device__ __forceinline__ void copy16_async(void* shared, const void* global) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(shared));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to),
+               "l"(global));
+}
+
+// Wait for this thread's cp.async copies; a barrier then shows them to the
+// block.
+__device__ __forceinline__ void wait_async_copies() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Rows a stage_rows call copies at most.
+constexpr int kStageRows = 16;
+
+// Stage `nrows` (<= kStageRows) rows of interleaved (H, W*C) uint8 rows into
+// shared memory, a block of kBlockThreads threads: staged byte e of row k,
+// at staged[k * stride + shift[k] + e] for e < len, is lane g0 + e of image
+// row clamp(v0 + k), its pixel clamped to [0, W - 1] in its own channel (g0
+// is a multiple of C, so the channel is e % C).  `stride` is at least
+// (len + 30) / 16 * 16, and `staged` and `stride` are multiples of 16.  A
+// span that lies inside the row is copied as the 16-byte aligned chunks
+// that cover it (shift[k] is the span's phase; the bytes around it are the
+// row's neighbours and are never read), with cp.async copies that do not
+// wait for their data when kAsync, else with 16-byte loads and stores; a
+// chunk that would leave the image's bytes goes byte by byte.  A span that
+// passes the image's edge is clamped byte by byte, with nrows loads in
+// flight a thread.  Before reading, the caller calls wait_async_copies
+// (kAsync) and then synchronises the block.  A caller that waits at once
+// gains nothing from cp.async, and measured it slower.
+template <int kBlockThreads, bool kAsync = true>
+__device__ __forceinline__ void stage_rows(
+    const uint8_t* __restrict__ src, uint8_t* __restrict__ staged, int* shift,
+    int stride, int g0, int len, int lanes, int channels, int v0, int nrows,
+    int height) {
+  if (g0 >= 0 && g0 + len <= lanes) {
+    const uint8_t* image_end = src + static_cast<size_t>(height) * lanes;
+#pragma unroll 2
+    for (int k = threadIdx.x / 32; k < nrows; k += kBlockThreads / 32) {
+      const uint8_t* a =
+          src + static_cast<size_t>(clamp_index(v0 + k, height)) * lanes + g0;
+      const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(a) & 15);
+      const uint8_t* base = a - sh;   // 16-byte aligned
+      uint8_t* row = staged + k * stride;
+      const int end = sh + len;
+      if (threadIdx.x % 32 == 0) shift[k] = sh;
+      for (int c = threadIdx.x % 32 * 16; c < end; c += 32 * 16) {
+        if (base + c >= src && base + c + 16 <= image_end) {
+          if constexpr (kAsync) {
+            copy16_async(row + c, base + c);
+          } else {
+            *reinterpret_cast<uint4*>(row + c) =
+                __ldg(reinterpret_cast<const uint4*>(base + c));
+          }
+        } else {
+          for (int e = max(c, sh); e < min(c + 16, end); ++e) row[e] = base[e];
+        }
+      }
+    }
+  } else {
+    if (threadIdx.x < kStageRows) shift[threadIdx.x] = 0;
+    for (int e = threadIdx.x; e < len; e += kBlockThreads) {
+      int at = g0 + e;
+      if (at < 0) {
+        at = e % channels;
+      } else if (at >= lanes) {
+        at = lanes - channels + e % channels;
+      }
+      uint8_t v[kStageRows];
+#pragma unroll
+      for (int k = 0; k < kStageRows; ++k) {
+        v[k] = k < nrows
+                   ? src[static_cast<size_t>(clamp_index(v0 + k, height)) * lanes + at]
+                   : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kStageRows; ++k) {
+        if (k < nrows) staged[k * stride + e] = v[k];
+      }
+    }
+  }
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory on the current device
+// (above 48 KB a launch must opt in).  The attribute is raised, never
+// lowered, and set only when a launch needs more than before: a host call
+// on every launch would cost more than the kernels.
+template <auto kernel>
+cudaError_t allow_shared(int bytes) {
+  constexpr int kMaxDevices = 64;
+  static int allowed[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices && bytes <= allowed[device]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err == cudaSuccess && device < kMaxDevices) allowed[device] = bytes;
+  return err;
+}
+
+// Row bands of `block_threads`-thread blocks of `kernel` with `bytes` of
+// shared memory over `columns` strips (times the batch): as many bands as
+// fill the SMs' block slots once (a block's time grows with its rows, a
+// partial last wave idles most SMs), each a multiple of `multiple` rows and
+// at least `least`.  The result of a kernel does not depend on it.
+template <auto kernel>
+cudaError_t band_rows_for(int block_threads, int bytes, long long columns,
+                          int height, int multiple, int least, int* band_rows) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        block_threads, bytes);
+  }
+  if (err != cudaSuccess) return err;
+  const long long bands = std::max(1LL, sms * std::max(per_sm, 1) / columns);
+  const int rows = static_cast<int>((height + bands - 1) / bands);
+  *band_rows = std::max((rows + multiple - 1) / multiple * multiple, least);
+  return cudaSuccess;
 }
 
 }  // namespace gip

@@ -4,8 +4,12 @@
 kept in f32, the level-1 numerics that level 4 serves) replace the TPU
 kernels `ops/pallas/sobel.py::_sobel_kernel_interleaved` and
 `ops/pallas/sobel_mxu.py::_sobel_mxu_kernel`.  They take (H, W*C) uint8
-rows, or a (B, H, W*C) batch, with C in {1, 3, 4}.  On a CPU tensor they
-return the plain version; on a CUDA tensor they launch the kernel or raise.
+rows, or a (B, H, W*C) batch, with C in {1, 3, 4}: one template,
+`sobel_tile_rows`, whose blocks stage a tile with 16-byte loads, compute
+each pixel's grey value once into shared memory, run 3x3 register windows
+down columns and store the replicated magnitude with 16-byte stores.  On a
+CPU tensor they return the plain version; on a CUDA tensor they launch the
+kernel or raise.
 """
 
 from __future__ import annotations

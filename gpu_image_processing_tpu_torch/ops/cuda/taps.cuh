@@ -1,7 +1,6 @@
-// The scalar blur taps shared by blur.cu (`gaussian_rows` and
-// `gaussian_folded_rows`, two passes through device memory) and
-// blur_planar.cu (both passes in one launch): one pass's value at one output
-// element, in the tap order each numerics level fixes.
+// The scalar blur taps of blur_planar.cu (both passes in one launch, the
+// only user): one pass's value at one output element, in the tap order each
+// numerics level fixes.
 //
 //   Weighted (level 2): acc = __fadd_rn(acc, __fmul_rn(px, w[t])) in tap order;
 //   Folded (level 4, r < 3): for t < r, acc += (x[t] + x[2r-t]) * w[t] in t
@@ -11,9 +10,9 @@
 //
 // What bounds a kernel built on these: instruction issue, about ten
 // instructions a tap (load, convert, weight load, multiply, add, loop).
-// The redesigned box and band of blur.cu do not use them: box keeps
-// running window sums (O(1) a tap-window), the band runs on the tensor
-// cores.
+// The rows kernels of blur.cu do not use them: the gaussian keeps register
+// windows with the taps as constant operands, box running window sums, the
+// band the tensor cores.  The tags below name the tap orders for both files.
 #pragma once
 
 #include <type_traits>

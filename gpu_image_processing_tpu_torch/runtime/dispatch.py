@@ -76,7 +76,10 @@ class FilterRuntime:
                           for t in bf16_split(table))
                 return lambda rows: blur.gaussian_band_rows(
                     rows, hi, lo, radius, channels)
-            weights = weights_to_torch(table, self.device)
+            # The level-2 and level-4 kernels take their taps by value, from
+            # the host; level 1 computes with them on the device.
+            weights = weights_to_torch(
+                table, self.device if lvl == 1 else torch.device("cpu"))
             impl = {1: interleaved.gaussian_rows, 2: blur.gaussian_rows,
                     4: blur.gaussian_folded_rows}[lvl]
             return lambda rows: impl(rows, weights, radius, channels)

@@ -8,10 +8,19 @@ Usage, from the root of the repository:
 imports `gpu_image_processing_tpu_torch` from DIR (default: the checkout
 this file lies in), builds its kernels, and times each case below on a
 seeded 2146x3239 RGB image with CUDA events: the mean of ITERS back-to-back
-launches.  The cases: `gaussian_rows` (sigma 2, r = 3), `box_rows` at
-r = 1, 5, 15, 40 and 4000 (wider than the image), `sobel_rows`, and
-`gaussian_band_rows` at r = 3, 15, 31 on the (H, W*C) rows and on the
-(3, H, W) planes of the same image.
+launches, right after WARM untimed ones (a card that idled, as while a
+library builds, raises its clocks only under load), the least of REPEATS
+such runs.  Before each run the card sleeps (`torch.cuda._sleep`) while the
+host queues the run's launches, so the events time the kernels and not the
+wrappers' host work, which for a kernel of tens of microseconds takes about
+as long; the host's microseconds a launch (host clock around the queueing,
+least of the runs) are printed beside them.  The cases: `gaussian_rows` at r = 1, 3, 15, 20 (a radius without a kernel of
+its own), 31 and `gaussian_folded_rows` at r = 1, 2 (sigma as `GAUSS`),
+each given its table where its checkout's kernel takes it (on the host, or
+on the card where an older checkout reads it there), `sobel_rows` and
+`sobel_f32_rows`, `box_rows` at r = 1, 5, 15, 40 and 4000 (wider than the
+image), and `gaussian_band_rows` at r = 3, 15, 31 on the (H, W*C) rows and
+on the (3, H, W) planes of the same image.
 
 With --ref, it also imports the package of a second checkout, REF, under
 another module name (the package imports itself only relatively), so that
@@ -20,8 +29,8 @@ REF for every case: drift of the card touches both alike.  It calls only
 wrappers whose signatures every version of the port has kept.
 
 It prints one line per case and, last, one JSON line: the card's name and
-power limit as nvidia-smi gives them, the roots, and each case's times in
-ms.
+power limit as nvidia-smi gives them, the roots, each case's times in ms
+and its host microseconds a launch.
 """
 
 from __future__ import annotations
@@ -32,14 +41,22 @@ import importlib.util
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 FULL = (2146, 3239, 3)        # the README image (bench.py:34,50-52)
 SEED = 1234
 ITERS = 20
+WARM = 10
+REPEATS = 3
+# Cycles the card sleeps before a timed run: about 25 ms at 1.98 GHz, longer
+# than the host takes to queue ITERS launches.
+SLEEP_CYCLES = 50_000_000
 PACKAGE = "gpu_image_processing_tpu_torch"
 BOX_RADII = (1, 5, 15, 40, 4000)
-BAND = ((3, 2.0), (15, 5.0), (31, 8.0))     # (radius, sigma)
+GAUSS = ((1, 1.0), (3, 2.0), (15, 8.0), (20, 8.0), (31, 8.0))   # (radius, sigma)
+FOLDED = ((1, 1.0), (2, 1.5))
+BAND = ((3, 2.0), (15, 5.0), (31, 8.0))
 
 
 def load_package(root: str, name: str):
@@ -61,14 +78,34 @@ def load_package(root: str, name: str):
     return mods
 
 
+def gaussian_table(weights, fn, rows, table, radius: int, channels: int):
+    """`table` where the checkout's `fn` takes it: on the host where its
+    kernel takes the taps by value; where it refuses a host table, on the
+    card."""
+    import torch
+
+    host = weights.weights_to_torch(table, torch.device("cpu"))
+    try:
+        fn(rows, host, radius, channels)
+    except ValueError:
+        return host.to(rows.device)
+    return host
+
+
 def cases(blur, sobel, weights, rows, planes, width: int, channels: int) -> dict:
     """name -> zero-argument launch of one checkout's kernel."""
     dev = rows.device
-    w3 = weights.weights_to_torch(weights.gaussian_kernel_f32(3, 2.0), dev)
-    out = {
-        "gaussian_rows r=3": lambda: blur.gaussian_rows(rows, w3, 3, channels),
-        "sobel_rows": lambda: sobel.sobel_rows(rows, width, channels),
-    }
+    out = {}
+    for name, fn, table in (("gaussian_rows", blur.gaussian_rows, GAUSS),
+                            ("gaussian_folded_rows", blur.gaussian_folded_rows,
+                             FOLDED)):
+        for r, sigma in table:
+            wr = gaussian_table(weights, fn, rows,
+                                weights.gaussian_kernel_f32(r, sigma), r, channels)
+            out[f"{name} r={r}"] = (
+                lambda fn=fn, r=r, wr=wr: fn(rows, wr, r, channels))
+    out["sobel_rows"] = lambda: sobel.sobel_rows(rows, width, channels)
+    out["sobel_f32_rows"] = lambda: sobel.sobel_f32_rows(rows, width, channels)
     for r in BOX_RADII:
         out[f"box_rows r={r}"] = (
             lambda r=r: blur.box_rows(rows, r, channels))
@@ -112,15 +149,24 @@ def main(argv: list[str] | None = None) -> int:
                        rows, planes, w, c)
             for arm, root in roots.items()}
 
-    def event_ms(fn) -> float:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(ITERS):
+    def event_ms(fn) -> tuple[float, float]:
+        """(card ms, host us) a launch."""
+        for _ in range(WARM):
             fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / ITERS
+        runs, host = [], []
+        for _ in range(REPEATS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SLEEP_CYCLES)
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(ITERS):
+                fn()
+            host.append((time.perf_counter() - t0) / ITERS * 1e6)
+            end.record()
+            end.synchronize()
+            runs.append(start.elapsed_time(end) / ITERS)
+        return min(runs), min(host)
 
     for arm in arms.values():   # build, load and warm
         for fn in arm.values():
@@ -130,20 +176,25 @@ def main(argv: list[str] | None = None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.splitlines()[0].strip()
-    times = {}
+    times, host_us = {}, {}
     for name in arms["root"]:
         got = {arm: [] for arm in arms}
+        hosts = {arm: [] for arm in arms}
         for arm in order:
-            got[arm].append(event_ms(arms[arm][name]))
-        times[name] = got
+            ms, us = event_ms(arms[arm][name])
+            got[arm].append(ms)
+            hosts[arm].append(us)
+        times[name], host_us[name] = got, hosts
         line = "; ".join(f"{arm} " + ", ".join(f"{t:.4f}" for t in ts)
                          for arm, ts in got.items())
         ratio = ""
         if "ref" in got:
             ratio = f"; root / ref {sum(got['root']) / sum(got['ref']):.3f}"
-        print(f"[{card}] {name} {h}x{w}x{c}: {line} ms{ratio}", flush=True)
+        host = "; ".join(f"{arm} {min(us):.1f}" for arm, us in hosts.items())
+        print(f"[{card}] {name} {h}x{w}x{c}: {line} ms{ratio}; host us a "
+              f"launch {host}", flush=True)
     print(json.dumps({"card": card, "shape": list(FULL), "roots": roots,
-                      "order": order, "ms": times}))
+                      "order": order, "ms": times, "host_us": host_us}))
     return 0
 
 
