@@ -11,12 +11,13 @@ Phases, each of which fails the run on its own:
    limit and the toolchain;
 2. build: builds every library of the main path from the sources, one nvcc
    per source, all started together;
-3. kernel vs plain: each of the eleven kernels against its plain torch
+3. kernel vs plain: each of the eleven launchers against its plain torch
    version on the card, at small shapes, edge shapes and the full 2146x3239
    RGB image, gaussian at r in {1, 2, 3, 15, 31} and the rows gaussian
-   also at r = 20 (its kernel that takes the radius at run time), box also at r = 64 (the
-   widest of the one-launch running sum), 65 (the first of the two-launch
-   one) and 4000 (wider than every image); every kernel must agree exactly,
+   also at r = 20 (its kernel that takes the radius at run time), box also
+   at r = 7 and 8 (the last of its window mode, the first of its running
+   sums), 64 (the widest of the one-launch running sum), 65 (the first of
+   the two-launch one) and 4000 (wider than every image); every kernel must agree exactly,
    except colour level-2 Sobel, held to the bound of
    tests/sobel_tolerance.py, and the tensor-core band, held to maxdiff <= 1
    on at most 0.1% of bytes (its differing bytes are printed) and to the
@@ -36,21 +37,27 @@ Phases, each of which fails the run on its own:
    with 4 images at levels 2 and 4, an error probe; the six rows
    kernels' launch counts read around that run, each request's wall split
    into decode, run and encode;
-6. planar path: the models (`GaussianBlur`, `BoxBlur`,
+6. planar path: (a) the models (`GaussianBlur`, `BoxBlur`,
    `SobelEdgeDetection`, an `nn.Sequential` of two), the six registry
    keys and `entry()` on the full image on the card, each equal to the
    interleaved API's result (the level-4 band within its tolerance, since
-   the tensor cores sum planes and rows in other orders), with the planar
-   kernels' launch counts read
-   around that run (they also run in phase 3 against their plain
-   versions, on batches of 4 full-size images and on row bands with halo
-   rows); then a torch.profiler trace of both paths that must list every
-   kernel;
-7. times: the API's metrics, each kernel's CUDA-event time beside its
-   plain version's and its bound, the gaussian (r = 1, 15, 31; folded
-   r = 1), box and the band at their other radii, the fused planar blur
-   against the window `gaussian_rows` and the running-sum `box_rows` on the
-   same planes, and the model's wall.
+   the tensor cores sum planes and rows in other orders); the tier runs
+   the rows kernels on the (H, W*C) view, so their launch counts, read
+   around that run, must move and no planar kernel may launch; (b) the
+   planes path, K5 and K7 where the rows kernels do not serve: row bands
+   with halo rows, the Sobel batch with zero_rows=False and 33-channel
+   images past the rows kernels' caps, against the API's rows and the
+   plain versions, with the planar kernels' launch counts read around
+   that run (they also run in phase 3 against their plain versions, on
+   batches of 4 full-size images and on row bands with halo rows); then a
+   torch.profiler trace of both paths that must list every kernel, and
+   one of the model's forward that must list the rows kernel alone;
+7. times: each kernel's CUDA-event time beside its plain version's and
+   its bound, the gaussian (r = 1, 15, 20, 31; folded r = 1), box and the
+   band at their other radii, K5 and K7 on 4 images and in their halo
+   modes, the API's `time_ms` beside its kernel's event time (level 1
+   beside the plain version's), and the models' forward wall and events.
+   The old kernels against the new: `tools/kernel_times.py --ref`.
 
 The line before the last is a JSON object `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`.  Any failure exits non-zero and prints no ok
@@ -101,10 +108,11 @@ GAUSS = [(1, 1.0), (2, 1.5), (3, 2.0), (15, 8.0), (31, 8.0)]   # (radius, sigma)
 # 3 and up folded) share one that takes the radius at run time.
 GAUSS_RUNTIME_RADIUS = (20, 8.0)
 BOX_RADII = [1, 2, 5, 15, 40]
-# box_rows: the widest radius of its one-launch running sum, the first of
-# its two-launch one, and one wider than every image here.
-BOX_WIDE_RADII = [64, 65, 4000]
-PLANAR_BOX_RADII = [1, 2, 5, 15, 31]   # the fused tile takes r <= 31
+# box_rows: the widest radius of its window mode and the first of its
+# running sums, the widest of its one-launch running sum, the first of its
+# two-launch one, and one wider than every image here.
+BOX_WIDE_RADII = [7, 8, 64, 65, 4000]
+PLANAR_BOX_RADII = [1, 2, 5, 15, 31]   # the planar blur takes r <= 31
 BAND_ROWS = (700, 1500)       # a row band of the full image, for the halo modes
 MAIN_SIGMA, MAIN_GAUSS_RADIUS, MAIN_BOX_RADIUS = 2.0, 3, 5
 FOLDED_RADIUS = 2             # level 4 folds taps below r = 3
@@ -128,8 +136,6 @@ BF16_TENSOR_OPS_PER_S = 989e12
 
 _BLUR = "gpu_image_processing_tpu_torch/ops/cuda/blur.cu"
 _SOBEL = "gpu_image_processing_tpu_torch/ops/cuda/sobel.cu"
-_BLUR_PLANAR = "gpu_image_processing_tpu_torch/ops/cuda/blur_planar.cu"
-_SOBEL_PLANAR = "gpu_image_processing_tpu_torch/ops/cuda/sobel_planar.cu"
 _TPU = "gpu_image_processing_tpu/ops/pallas/"
 KERNELS = {
     "gaussian_rows": {
@@ -143,14 +149,17 @@ KERNELS = {
         "replaces": _TPU + "blur_mxu.py:190",
         "also_replaces": [_TPU + "blur.py:212", _TPU + "blur.py:996",
                           _TPU + "blur_mxu.py:567"],
-        "profiler_names": ["box_window_rows", "box_wide_h", "box_wide_v"],
+        # Small radii take the window kernel in box mode, then running sums
+        # in one launch, then two.
+        "profiler_names": ["gauss_window_rows<gip::Box", "box_window_rows",
+                           "box_wide_h", "box_wide_v"],
     },
     "sobel_rows": {
         "source": _SOBEL,
         "replaces": _TPU + "sobel_mxu.py:174",
         "also_replaces": [_TPU + "sobel.py:162", _TPU + "sobel_mxu.py:299",
                           _TPU + "sobel.py:289"],
-        "profiler_names": ["sobel_tile_rows<true"],
+        "profiler_names": ["sobel_tile_rows<true, 3, false>"],
     },
     "gaussian_folded_rows": {
         "source": _BLUR,
@@ -169,45 +178,50 @@ KERNELS = {
         "replaces": _TPU + "sobel_mxu.py:174",
         "also_replaces": [_TPU + "sobel.py:162", _TPU + "sobel_mxu.py:364",
                           _TPU + "sobel_mxu.py:299", _TPU + "sobel.py:289"],
-        "profiler_names": ["sobel_tile_rows<false"],
+        "profiler_names": ["sobel_tile_rows<false, 3, false>"],
     },
+    # The planar blur (K5) and Sobel (K7): the rows templates at one
+    # channel a plane (gauss_window_rows, box_window_rows, with halo rows)
+    # and in their planar layout (sobel_tile_rows<.., true>).
     "gaussian_planar": {
-        "source": _BLUR_PLANAR,
+        "source": _BLUR,
         "replaces": _TPU + "blur.py:664",
         "also_replaces": [_TPU + "blur.py:212", _TPU + "blur.py:1055"],
-        "profiler_names": ["blur_planar<gip::Weighted>"],
+        "profiler_names": ["gauss_window_rows<gip::Weighted"],
     },
     "gaussian_folded_planar": {
-        "source": _BLUR_PLANAR,
+        "source": _BLUR,
         "replaces": _TPU + "blur.py:664",
         "also_replaces": [_TPU + "blur.py:318", _TPU + "blur.py:1055"],
-        "profiler_names": ["blur_planar<gip::Folded>"],
+        "profiler_names": ["gauss_window_rows<gip::Folded"],
     },
     "box_planar": {
-        "source": _BLUR_PLANAR,
+        "source": _BLUR,
         "replaces": _TPU + "blur.py:664",
         "also_replaces": [_TPU + "blur.py:1075", _TPU + "blur_mxu.py:544"],
-        "profiler_names": ["blur_planar<gip::Box>"],
+        "profiler_names": ["gauss_window_rows<gip::Box", "box_window_rows"],
     },
     "sobel_planar": {
-        "source": _SOBEL_PLANAR,
+        "source": _SOBEL,
         "replaces": _TPU + "sobel.py:121",
         "also_replaces": [_TPU + "sobel.py:143"],
-        "profiler_names": ["sobel_planar<true>"],
+        "profiler_names": ["sobel_tile_rows<true, 3, true>"],
     },
     "sobel_f32_planar": {
-        "source": _SOBEL_PLANAR,
+        "source": _SOBEL,
         "replaces": _TPU + "sobel.py:121",
         "also_replaces": [_TPU + "sobel.py:143"],
-        "profiler_names": ["sobel_planar<false>"],
+        "profiler_names": ["sobel_tile_rows<false, 3, true>"],
     },
 }
-# Kernels of the API path (phase 4); the server path runs the first six.
+# Kernels of the API path (phase 4); the server path runs the first six, and
+# so does the planar tier (phase 6a), on the (H, W*C) view of each image.
 API_KERNELS = ("gaussian_rows", "box_rows", "sobel_rows")
 ROWS_KERNELS = tuple(KERNELS)[:6]
-# Kernels of the planar path (phase 6): the five planar launchers and the
-# band, which level-4 gaussian runs on the planes from r = 3.
-PLANAR_KERNELS = tuple(KERNELS)[6:] + ("gaussian_band_rows",)
+# The planar kernels (K5, K7), launched on the planes path (phase 6b): row
+# bands with halo rows, the Sobel batch with zero_rows=False, and images
+# past the rows kernels' channel caps.
+PLANAR_KERNELS = tuple(KERNELS)[6:]
 
 
 class SmokeFailure(Exception):
@@ -254,13 +268,16 @@ def planar_launchers(dev: torch.device, radius: int, sigma: float,
                      box_radius: int) -> dict:
     """name -> (kernel, plain) functions of (N, H, W) or (B, C, H, W)
     planes, for one parameter set."""
-    w = weights_to_torch(gaussian_kernel_f32(radius, sigma), dev)
+    table = gaussian_kernel_f32(radius, sigma)
+    w = weights_to_torch(table, dev)
+    # The planar gaussian takes its taps by value, from the host.
+    w_host = weights_to_torch(table, torch.device("cpu"))
     r, br = radius, box_radius
     return {
-        "gaussian_planar": (lambda x: blur_planar.gaussian_planar(x, w, r),
+        "gaussian_planar": (lambda x: blur_planar.gaussian_planar(x, w_host, r),
                             lambda x: blur_planar.gaussian_planar_plain(x, w, r)),
         "gaussian_folded_planar": (
-            lambda x: blur_planar.gaussian_folded_planar(x, w, r),
+            lambda x: blur_planar.gaussian_folded_planar(x, w_host, r),
             lambda x: blur_planar.gaussian_folded_planar_plain(x, w, r)),
         "box_planar": (lambda x: blur_planar.box_planar(x, br),
                        lambda x: blur_planar.box_planar_plain(x, br)),
@@ -576,49 +593,56 @@ def main() -> int:
             + "; every image equals its single launch")
     torch.cuda.synchronize()
 
-    # The planar batches: 4 full-size images (83 MB) through K5 (12 planes)
-    # and K6, one launch each, against the plain version on the same planes
-    # and against single-image launches.
+    # The planar kernels on a batch: 4 full-size images (83 MB), K5 on their
+    # 12 planes and K7 on (4, 3, H, W), one launch each, against the plain
+    # version on the same planes and against single-image launches; the
+    # tier's batch functions, which run the rows kernels on the (B, H, W*C)
+    # view, equal the planar kernels' result.
     h, w, c = FULL
     b = 4
     imgs = torch.from_numpy(rng.integers(0, 256, size=(b, *FULL), dtype=np.uint8)).to(dev)
     batch_planes = imgs.permute(0, 3, 1, 2).contiguous()      # (B, C, H, W)
+    flat = batch_planes.view(b * c, h, w)
     w3 = weights_to_torch(gaussian_kernel_f32(MAIN_GAUSS_RADIUS, MAIN_SIGMA), dev)
     w2 = weights_to_torch(gaussian_kernel_f32(FOLDED_RADIUS, 1.5), dev)
-    l2, l4 = planar_api.level2_impls(), planar_api.level4_impls()
-    flat = batch_planes.reshape(b * c, h, w)
-    batch_cases = {
+    w3_host, w2_host = w3.cpu(), w2.cpu()
+    r3, r2, br = MAIN_GAUSS_RADIUS, FOLDED_RADIUS, MAIN_BOX_RADIUS
+    batch_cases = {   # (kernel, plain, the tier's batch function)
         "gaussian_planar": (
-            lambda: planar_api.gaussian_planar_batch(imgs, w3, MAIN_GAUSS_RADIUS),
-            lambda: blur_planar.gaussian_planar_plain(flat, w3, MAIN_GAUSS_RADIUS),
-            lambda i: l2["gaussian"](imgs[i], w3, MAIN_GAUSS_RADIUS)),
+            lambda x: blur_planar.gaussian_planar(x, w3_host, r3),
+            lambda x: blur_planar.gaussian_planar_plain(x, w3, r3),
+            lambda: planar_api.gaussian_planar_batch(imgs, w3_host, r3)),
         "gaussian_folded_planar": (
-            lambda: planar_api.gaussian_planar_batch(imgs, w2, FOLDED_RADIUS, folded=True),
-            lambda: blur_planar.gaussian_folded_planar_plain(flat, w2, FOLDED_RADIUS),
-            lambda i: l4["gaussian"](imgs[i], w2, FOLDED_RADIUS)),
+            lambda x: blur_planar.gaussian_folded_planar(x, w2_host, r2),
+            lambda x: blur_planar.gaussian_folded_planar_plain(x, w2, r2),
+            lambda: planar_api.gaussian_planar_batch(imgs, w2_host, r2, folded=True)),
         "box_planar": (
-            lambda: planar_api.box_planar_batch(imgs, MAIN_BOX_RADIUS),
-            lambda: blur_planar.box_planar_plain(flat, MAIN_BOX_RADIUS),
-            lambda i: l2["box"](imgs[i], MAIN_BOX_RADIUS)),
+            lambda x: blur_planar.box_planar(x, br),
+            lambda x: blur_planar.box_planar_plain(x, br),
+            lambda: planar_api.box_planar_batch(imgs, br)),
         "sobel_planar": (
-            lambda: planar_api.sobel_planar_batch(imgs, 2),
-            lambda: sobel_planar.sobel_planar_plain(batch_planes, 2),
-            lambda i: l2["sobel"](imgs[i])),
+            sobel_planar.sobel_planar,
+            lambda x: sobel_planar.sobel_planar_plain(x, 2),
+            lambda: planar_api.sobel_planar_batch(imgs, 2)),
         "sobel_f32_planar": (
-            lambda: planar_api.sobel_planar_batch(imgs, 1),
-            lambda: sobel_planar.sobel_planar_plain(batch_planes, 1),
-            lambda i: l4["sobel"](imgs[i])),
+            sobel_planar.sobel_f32_planar,
+            lambda x: sobel_planar.sobel_planar_plain(x, 1),
+            lambda: planar_api.sobel_planar_batch(imgs, 1)),
     }
     diffs = {}
-    for name, (batched, plain, single) in batch_cases.items():
-        out = batched()
-        want = plain().reshape(b, c, h, w).permute(0, 2, 3, 1)
-        diffs[name] = compare(name, out, want, f"batch {b}x{h}x{w}x{c}")
+    for name, (kernel, plain, tier) in batch_cases.items():
+        x = batch_planes if name.startswith("sobel") else flat
+        out = kernel(x)
+        diffs[name] = compare(name, out, plain(x), f"batch {b}x{h}x{w}x{c}")
+        out = out.view(b, c, h, w)
         for i in range(b):
-            require(torch.equal(out[i], single(i)),
+            require(torch.equal(out[i], kernel(batch_planes[i])),
                     f"{name} batch: image {i} differs from its single launch")
+        require(torch.equal(tier(), out.permute(0, 2, 3, 1)),
+                f"{name} batch: the tier's rows kernels differ from the planar kernel")
     print(f"planar batch {b}x{h}x{w}x{c}: kernel vs plain maxdiff " + ", ".join(
-        f"{n} {d}" for n, d in diffs.items()) + "; every image equals its single launch")
+        f"{n} {d}" for n, d in diffs.items()) + "; every image equals its single "
+        "launch; the tier's batches (rows kernels) equal the planar kernels")
 
     # Band modes: rows [BAND_ROWS) of a full-size image, given with their
     # neighbour rows as halo, equal the same rows of the whole image.
@@ -649,10 +673,17 @@ def main() -> int:
                 f"band {z - a}x{w}x{c}")
         require(torch.equal(got[0], fn(planes)[:, a:z]),
                 f"{name} band: differs from the whole image's rows")
+        # No halo rows and the rows kept: the rows outside read grey 0.
+        got = fn(planes, zero_rows=False)
+        compare(name, got, sobel_planar.sobel_planar_plain(planes, level, False, False),
+                f"zero_rows=False {h}x{w}x{c}")
+        require(torch.equal(got[:, 1:-1], fn(planes)[:, 1:-1]),
+                f"{name} zero_rows=False: inner rows differ")
     torch.cuda.synchronize()
     print(f"planar band rows {a}-{z} of {h}x{w}x{c} with halo rows: gaussian, folded "
           f"and box at r=3 and 31, Sobel (zero_rows=False) at both levels equal "
-          f"the whole image's rows and their plain versions")
+          f"the whole image's rows and their plain versions; Sobel with "
+          f"zero_rows=False and no halo rows equals its plain version")
     del imgs, batch_planes, flat, band
 
     # The PNG codec's C++ unfilter helper against its numpy plain version,
@@ -871,9 +902,12 @@ def main() -> int:
           "per-image requests, level 5 -> 400")
 
     # -- 6. planar path at full size ------------------------------------------
-    # The models, the registry and the flagship entry on (H, W, C) tensors on
-    # the card, each against the interleaved API on the same image: forward
-    # at levels 2 and 4 is the level-2 function, the "_adv" keys level 4.
+    # 6a. The models, the registry and the flagship entry on (H, W, C)
+    # tensors on the card, each against the interleaved API on the same
+    # image: forward at levels 2 and 4 is the level-2 function, the "_adv"
+    # keys level 4.  The tier runs the rows kernels on the (H, W*C) view of
+    # each image, so no planar kernel launches here; only the level-4 band
+    # runs on planes.
     image_t = torch.from_numpy(image).to(dev)
     rgba = rng.integers(0, 256, size=(h, w, 4), dtype=np.uint8)
     registry: dict = {}
@@ -893,8 +927,8 @@ def main() -> int:
         "BoxBlur r=40": BoxBlur(40, 2)(image_t),
         "SobelEdgeDetection L1": SobelEdgeDetection(1)(image_t),
         "SobelEdgeDetection L2": SobelEdgeDetection(2)(image_t),
-        "gaussian": registry["gaussian"](image_t, w3, MAIN_GAUSS_RADIUS),
-        "gaussian_adv r=2": registry["gaussian_adv"](image_t, w2, FOLDED_RADIUS),
+        "gaussian": registry["gaussian"](image_t, w3_host, MAIN_GAUSS_RADIUS),
+        "gaussian_adv r=2": registry["gaussian_adv"](image_t, w2_host, FOLDED_RADIUS),
         "gaussian_adv r=15": registry["gaussian_adv"](image_t, w15, 15),
         "box": registry["box"](image_t, MAIN_BOX_RADIUS),
         "box_adv": registry["box_adv"](image_t, MAIN_BOX_RADIUS),
@@ -906,11 +940,14 @@ def main() -> int:
     entry_out = forward(entry_img, entry_w)
     torch.cuda.synchronize()
     planar_wall = (time.perf_counter() - t0) * 1000.0
-    planar_launches = {name: LAUNCHES[name] for name in PLANAR_KERNELS}
-    print(f"planar path launches: {planar_launches} ({len(planar) + 1} calls "
+    tier_launches = {name: LAUNCHES[name] for name in KERNELS}
+    print(f"planar path launches: {tier_launches} ({len(planar) + 1} calls "
           f"in {planar_wall:.1f} ms, host clock)")
-    for name, n in planar_launches.items():
-        require(n > 0, f"planar path never launched {name}")
+    for name in ROWS_KERNELS:
+        require(tier_launches[name] > 0, f"planar path never launched {name}")
+    for name in PLANAR_KERNELS:
+        require(tier_launches[name] == 0,
+                f"planar path launched {name} on a call without halo rows")
 
     gauss_l2 = results[("gaussian", 2)]["image"]
     sobel_l2 = results[("sobel", 2)]["image"]
@@ -941,28 +978,96 @@ def main() -> int:
     # two layouts in other orders (depth 16 + 2r against 16 + 2rC), so the
     # band's tolerance.
     band_keys = {"gaussian_adv r=15"}
-    diffs = {}
-    for key, got in planar.items():
-        got = got.cpu().numpy()
-        require(got.shape == want[key].shape and got.dtype == np.uint8,
-                f"planar {key}: {got.shape} {got.dtype}")
-        d = np.abs(got.astype(int) - want[key])
-        diffs[key] = int(d.max())
-        if key in colour_sobel_l2:
-            require(d.max() <= SOBEL_MAX_DIFF and (d > 0).mean() <= SOBEL_MAX_FRACTION,
-                    f"planar {key} vs API: maxdiff {d.max()}")
-        elif key in band_keys:
-            require(d.max() <= blur.BAND_MAX_DIFF
-                    and (d > 0).mean() <= blur.BAND_MAX_FRACTION,
-                    f"planar {key} vs API: maxdiff {d.max()}, "
-                    f"{int((d > 0).sum())} bytes differ")
-        else:
-            require(d.max() == 0, f"planar {key} vs API: maxdiff {d.max()}")
+
+    def check_planar(got_by_key: dict, want_by_key: dict, what: str) -> dict:
+        diffs = {}
+        for key, got in got_by_key.items():
+            got = got.cpu().numpy()
+            require(got.shape == want_by_key[key].shape and got.dtype == np.uint8,
+                    f"{what} {key}: {got.shape} {got.dtype}")
+            d = np.abs(got.astype(int) - want_by_key[key])
+            diffs[key] = int(d.max())
+            if key in colour_sobel_l2:
+                require(d.max() <= SOBEL_MAX_DIFF and (d > 0).mean() <= SOBEL_MAX_FRACTION,
+                        f"{what} {key} vs API: maxdiff {d.max()}")
+            elif key in band_keys:
+                require(d.max() <= blur.BAND_MAX_DIFF
+                        and (d > 0).mean() <= blur.BAND_MAX_FRACTION,
+                        f"{what} {key} vs API: maxdiff {d.max()}, "
+                        f"{int((d > 0).sum())} bytes differ")
+            else:
+                require(d.max() == 0, f"{what} {key} vs API: maxdiff {d.max()}")
+        return diffs
+
+    diffs = check_planar(planar, want, "planar")
     require(torch.equal(entry_out, fused.gaussian_fused(entry_img, entry_w, 3)),
             "entry() on the card differs from its plain version")
     print(f"planar path vs the interleaved API at {w}x{h}: maxdiff " + ", ".join(
         f"{k} {d}" for k, d in diffs.items()) + f"; entry() {tuple(entry_out.shape)} "
         f"equals its plain version")
+
+    # 6b. The planes path: K5 and K7 where the rows kernels do not serve, at
+    # full size: row bands given with their halo rows (as the bands of a
+    # split image carry them), the Sobel batch with zero_rows=False, and
+    # images past the rows kernels' channel caps (33 channels), through the
+    # planar functions and the registry a caller uses.
+    a, z = BAND_ROWS
+    image_planes = planar_api.to_planes(image_t)
+    wide = rng.integers(0, 256, size=(h // 2, w // 2, blur.GAUSS_MAX_CHANNELS + 1),
+                        dtype=np.uint8)
+    wide_t = torch.from_numpy(wide).to(dev)
+    halo = {r: image_planes[:, a - r:z + r].contiguous() for r in (1, r2, r3, br)}
+    halo_imgs = image_t[None, a - 1:z + 1].contiguous()
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    planes_path = {
+        "gaussian_planar band": blur_planar.gaussian_planar(
+            halo[r3], w3_host, r3, rows_prepadded=True),
+        "gaussian_folded_planar band": blur_planar.gaussian_folded_planar(
+            halo[r2], w2_host, r2, rows_prepadded=True),
+        "box_planar band": blur_planar.box_planar(halo[br], br, rows_prepadded=True),
+        "sobel_planar_batch L2 band": planar_api.sobel_planar_batch(
+            halo_imgs, 2, rows_prepadded=True, zero_rows=False),
+        "sobel_planar_batch L1 band": planar_api.sobel_planar_batch(
+            halo_imgs, 1, rows_prepadded=True, zero_rows=False),
+        "sobel_planar_batch L2 zero_rows=False": planar_api.sobel_planar_batch(
+            image_t[None], 2, zero_rows=False),
+        "gaussian 33 channels": registry["gaussian"](wide_t, w3_host, r3),
+        "gaussian_adv r=2 33 channels": registry["gaussian_adv"](wide_t, w2_host, r2),
+        "box 33 channels": registry["box"](wide_t, br),
+    }
+    torch.cuda.synchronize()
+    planes_launches = {name: LAUNCHES[name] for name in PLANAR_KERNELS}
+    print(f"planes path launches: {planes_launches} ({len(planes_path)} calls)")
+    for name, n in planes_launches.items():
+        require(n > 0, f"planes path never launched {name}")
+    wide_rows = wide_t.view(h // 2, -1)
+    wc = wide.shape[-1]
+    sobel_keep = sobel_planar.sobel_planar_plain(
+        image_planes, 2, zero_rows=False).permute(1, 2, 0)[None]
+    want_planes = {
+        "gaussian_planar band": np.ascontiguousarray(gauss_l2[a:z].transpose(2, 0, 1)),
+        "gaussian_folded_planar band": np.ascontiguousarray(
+            want["gaussian_adv r=2"][a:z].transpose(2, 0, 1)),
+        "box_planar band": np.ascontiguousarray(
+            results[("box", 2)]["image"][a:z].transpose(2, 0, 1)),
+        "sobel_planar_batch L2 band": sobel_l2[None, a:z],
+        "sobel_planar_batch L1 band": results[("sobel", 1)]["image"][None, a:z],
+        "sobel_planar_batch L2 zero_rows=False": sobel_keep.cpu().numpy(),
+        "gaussian 33 channels": interleaved.gaussian_rows(
+            wide_rows, w3, r3, wc).view(wide_t.shape).cpu().numpy(),
+        "gaussian_adv r=2 33 channels": interleaved.gaussian_rows_folded(
+            wide_rows, w2, r2, wc).view(wide_t.shape).cpu().numpy(),
+        "box 33 channels": interleaved.box_rows(
+            wide_rows, br, wc).view(wide_t.shape).cpu().numpy(),
+    }
+    colour_sobel_l2 |= {"sobel_planar_batch L2 band",
+                        "sobel_planar_batch L2 zero_rows=False"}
+    diffs = check_planar(planes_path, want_planes, "planes path")
+    print(f"planes path at {w}x{h} (bands of rows {a}-{z}, {wide.shape} images): "
+          f"maxdiff " + ", ".join(f"{k} {d}" for k, d in diffs.items())
+          + " against the API's rows and the plain versions")
+    del halo, halo_imgs, sobel_keep, want_planes
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for lv in (2, 4):
@@ -970,11 +1075,18 @@ def main() -> int:
                 rt.run("gaussian", scene, level=lv, sigma=MAIN_SIGMA, radius=radius)
             rt.run("box", scene, level=lv, radius=MAIN_BOX_RADIUS)
             rt.run("sobel", scene, level=lv)
-        registry["gaussian"](image_t, w3, MAIN_GAUSS_RADIUS)
-        registry["gaussian_adv"](image_t, w2, FOLDED_RADIUS)
+        registry["gaussian"](image_t, w3_host, MAIN_GAUSS_RADIUS)
+        registry["gaussian_adv"](image_t, w2_host, FOLDED_RADIUS)
         registry["box"](image_t, MAIN_BOX_RADIUS)
         registry["sobel"](image_t)
         registry["sobel_adv"](image_t)
+        registry["gaussian"](wide_t, w3_host, r3)
+        registry["gaussian_adv"](wide_t, w2_host, r2)
+        registry["box"](wide_t, br)
+        registry["box"](wide_t, 15)
+        planar_api.sobel_planar_batch(image_t[None], 2, zero_rows=False)
+        planar_api.sobel_planar_batch(image_t[None], 1, zero_rows=False)
+        rt.run("box", scene, level=2, radius=15)    # box_rows's running sums
         rt.run("box", scene, level=2, radius=100)   # box_rows's two-launch route
         torch.cuda.synchronize()
     device_kernels = [e.key for e in prof.key_averages()
@@ -984,11 +1096,21 @@ def main() -> int:
             hits = [k for k in device_kernels if sub in k]
             require(hits, f"profiler lists no device kernel named {sub}")
             print(f"profiler: {name} -> {hits[0]}")
+    # The model's forward launches the rows kernel alone: no permute, no
+    # copy of its table.
+    model = GaussianBlur(MAIN_SIGMA, MAIN_GAUSS_RADIUS, 2).to(dev)
+    model(image_t)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model(image_t)
+        torch.cuda.synchronize()
+    forward_kernels = sorted({e.key for e in prof.key_averages()
+                              if getattr(e, "device_time_total", 0) > 0})
+    print(f"profiler: GaussianBlur(level=2) forward -> {forward_kernels}")
+    require(forward_kernels and all("gauss_window_rows" in k for k in forward_kernels),
+            f"the forward launches more than the rows kernel: {forward_kernels}")
 
     # -- 7. times -------------------------------------------------------------
-    for (f, lv), res in results.items():
-        print(f"[{card}] {f} L{lv} {w}x{h}x{c}: time_ms {res['time_ms']:.4f}, "
-              f"bandwidth_gbps {res['bandwidth_gbps']:.2f}, fps {res['fps']:.1f}")
     # Request time: the host clock around a whole API call, copies to and
     # from the card included (the call returns a numpy image, so it has
     # waited for the device).  Least of 3.
@@ -1077,17 +1199,26 @@ def main() -> int:
         dev, FOLDED_RADIUS, 1.5, MAIN_BOX_RADIUS)["gaussian_folded_planar"]
     for name, (kernel, plain_fn) in planar_arms.items():
         time_kernel(name, kernel, plain_fn, planes_full, planar_radius[name])
-    # The batch forms: 4 full-size images in one launch, K6 on (4, 3, H, W)
-    # and K5 on their 12 planes.
+    # The batch forms: 4 full-size images in one launch, K7 on (4, 3, H, W)
+    # and K5 on their 12 planes; K5 and K7 in their halo-row modes.
     batch4 = planes_full.unsqueeze(0).repeat(4, 1, 1, 1)
-    for name, fn in (
-            ("sobel_planar", lambda: sobel_planar.sobel_planar(batch4)),
-            ("gaussian_planar", lambda: blur_planar.gaussian_planar(
-                batch4.view(4 * c, h, w), w3, MAIN_GAUSS_RADIUS))):
-        least, by = bound(name, (4, *FULL), MAIN_GAUSS_RADIUS)
-        print(f"[{card}] {name} on 4 images (4, {c}, {h}, {w}): kernel "
-              f"{event_ms(fn):.4f} ms, bound {least:.4f} ms ({by})")
-    del batch4
+    band3 = planes_full[:, a - r3:z + r3].contiguous()
+    band1 = planes_full[None, :, a - 1:z + 1].contiguous()
+    for name, what, fn, shape in (
+            ("sobel_planar", f"on 4 images (4, {c}, {h}, {w})",
+             lambda: sobel_planar.sobel_planar(batch4), (4, *FULL)),
+            ("gaussian_planar", f"on 4 images ({4 * c}, {h}, {w})",
+             lambda: blur_planar.gaussian_planar(batch4.view(4 * c, h, w), w3_host, r3),
+             (4, *FULL)),
+            ("gaussian_planar", f"rows {a}-{z} with halo rows",
+             lambda: blur_planar.gaussian_planar(band3, w3_host, r3, True),
+             (z - a, w, c)),
+            ("sobel_planar", f"rows {a}-{z} with halo rows, zero_rows=False",
+             lambda: sobel_planar.sobel_planar(band1, True, False), (z - a, w, c))):
+        least, by = bound(name, shape, r3)
+        print(f"[{card}] {name} {what}: kernel {event_ms(fn):.4f} ms, bound "
+              f"{least:.4f} ms ({by})")
+    del batch4, band3, band1
     # The band (level-4 gaussian from r = 3) launched on the planes.
     for radius, sigma in ((MAIN_GAUSS_RADIUS, MAIN_SIGMA), (15, 5.0), (31, 8.0)):
         hi, lo = (weights_to_torch(t, dev)
@@ -1096,39 +1227,42 @@ def main() -> int:
         least, by = bound("gaussian_band_rows", FULL, radius)
         print(f"[{card}] gaussian_band_rows on (3, {h}, {w}) planes r={radius}: "
               f"kernel {k:.4f} ms, bound {least:.4f} ms ({by})")
-    # The fused planar blur (one launch, intermediate in shared memory)
-    # against the rows kernels on the same planes (channels=1), in the order
-    # A, B, B, A: the window kernel of `gaussian_rows` and the running-sum
-    # `box_rows` (one launch to r = 64), which tell whether planes should
-    # route to them.
-    for radius, sigma in ((MAIN_GAUSS_RADIUS, MAIN_SIGMA), (15, 5.0), (31, 8.0)):
-        wt = weights_to_torch(gaussian_kernel_f32(radius, sigma), dev)
-        wt_host = wt.cpu()
-        for what, one, two in (
-                ("gaussian", lambda: blur_planar.gaussian_planar(planes_full, wt, radius),
-                 lambda: blur.gaussian_rows(planes_full, wt_host, radius, 1)),
-                ("box", lambda: blur_planar.box_planar(planes_full, radius),
-                 lambda: blur.box_rows(planes_full, radius, 1))):
-            a1, b1, b2, a2 = event_ms(one), event_ms(two), event_ms(two), event_ms(one)
-            design = "window" if what == "gaussian" else "running-sum"
-            print(f"[{card}] A/B {what} r={radius} on (3, {h}, {w}) planes: fused "
-                  f"{what}_planar {a1:.4f}, {a2:.4f} ms; {design} {what}_rows "
-                  f"{b1:.4f}, {b2:.4f} ms; fused / {design} "
-                  f"{(a1 + a2) / (b1 + b2):.3f}")
-    # The model's forward: permutes in and out plus the kernel.  Host clock
-    # around a call that ends in a synchronize, least of 5, and CUDA events.
-    model = GaussianBlur(MAIN_SIGMA, MAIN_GAUSS_RADIUS, 2).to(dev)
-    walls = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model(image_t)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1000.0)
-    print(f"[{card}] GaussianBlur(level=2) forward {w}x{h}x{c}: wall "
-          f"{min(walls):.4f} ms (host clock, least of 5), CUDA events "
-          f"{event_ms(lambda: model(image_t)):.4f} ms, of which the kernel "
-          f"{times['gaussian_planar'][0]:.4f} ms")
+    # The API's time_ms (runtime/timing.py: the card's queue filled before
+    # the start event) beside its kernel's event time and, at level 1, the
+    # plain version's; least of 3 calls.
+    kernel_of = {"gaussian": "gaussian_rows", "box": "box_rows", "sobel": "sobel_rows"}
+    for f in calls:
+        for lv in (1, 2):
+            res = [calls[f](lv) for _ in range(3)]
+            tm = min(r["time_ms"] for r in res)
+            each = ", ".join("%.4f" % r["time_ms"] for r in res)
+            k_ms, p_ms = times[kernel_of[f]]
+            ref_ms, what = (k_ms, "kernel") if lv == 2 else (p_ms, "plain torch")
+            print(f"[{card}] {f} L{lv} {w}x{h}x{c}: time_ms {tm:.4f} "
+                  f"({each}), {what} "
+                  f"events {ref_ms:.4f} ms, time_ms / events {tm / ref_ms:.3f}; "
+                  f"bandwidth_gbps {res[0]['bandwidth_gbps']:.2f}, "
+                  f"fps {res[0]['fps']:.1f}")
+    # The old planar kernels against these: tools/kernel_times.py --ref
+    # times two checkouts in one process (README).
+    # The models' forward: the rows kernel on the (H, W*C) view, no
+    # permutes.  Host clock around a call that ends in a synchronize, least
+    # of 5, and CUDA events.
+    for label, fwd, kernel_name in (
+            ("GaussianBlur(level=2)", GaussianBlur(MAIN_SIGMA, MAIN_GAUSS_RADIUS, 2).to(dev),
+             "gaussian_rows"),
+            ("SobelEdgeDetection(level=2)", SobelEdgeDetection(2), "sobel_rows")):
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fwd(image_t)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1000.0)
+        print(f"[{card}] {label} forward {w}x{h}x{c}: wall {min(walls):.4f} ms "
+              f"(host clock, least of 5), CUDA events "
+              f"{event_ms(lambda: fwd(image_t)):.4f} ms, of which the kernel "
+              f"{times[kernel_name][0]:.4f} ms")
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
 
     # No single PyTorch call computes these functions (the u8 rounding
@@ -1138,7 +1272,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": spec["source"],
          "replaces": spec["replaces"], "also_replaces": spec["also_replaces"],
          "launches": (server_launches if name in ROWS_KERNELS
-                      else planar_launches)[name],
+                      else planes_launches)[name],
          "max_abs_err": max_err[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

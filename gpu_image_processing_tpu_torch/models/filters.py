@@ -42,9 +42,19 @@ def _level2(name: str):
     return impls[name]
 
 
+def _refresh_host_weights(module: "GaussianBlur", _incompatible) -> None:
+    module.host_weights = module.weights.detach().cpu().clone()
+
+
 class GaussianBlur(nn.Module):
     """Separable gaussian blur; its (2r+1,) float32 table is the buffer
-    `weights`, which `.to(device)` moves with the module."""
+    `weights`, which `.to(device)` moves with the module.
+
+    `host_weights` is a copy of the table that stays on the host (a plain
+    attribute, so `.to()` and `state_dict()` leave it out): the level-2
+    kernels take their taps by value, and a table on the card would be read
+    back, which waits for the card.  Loading a state dict refreshes it.
+    """
 
     weights: torch.Tensor
 
@@ -56,16 +66,20 @@ class GaussianBlur(nn.Module):
         self.sigma, self.radius, self.level = sigma, radius, level
         self.register_buffer("weights", weights_to_torch(
             gaussian_kernel_f32(radius, float(sigma)), torch.device("cpu")))
+        self.host_weights = self.weights.clone()
+        self.register_load_state_dict_post_hook(_refresh_host_weights)
 
     def forward(self, image: torch.Tensor,
                 weights: torch.Tensor | np.ndarray | None = None) -> torch.Tensor:
         """(H, W, C) u8 -> u8.  `weights` replaces the module's table: a
-        tensor on the image's device, or a numpy table such as the JAX
-        model's `weights`, moved there bit for bit."""
-        w = self.weights if weights is None else table(weights, image.device)
-        lvl = normalize_level("gaussian", self.level)
-        impl = ref.gaussian_blur if lvl == 1 else _level2("gaussian")
-        return impl(image, w, self.radius)
+        tensor (level 1 moves it to the image's device; levels 2 and 4 take
+        it on the host or the image's device), or a numpy table such as the
+        JAX model's `weights`, taken bit for bit."""
+        if normalize_level("gaussian", self.level) == 1:
+            w = self.weights if weights is None else table(weights).to(image.device)
+            return ref.gaussian_blur(image, w, self.radius)
+        w = self.host_weights if weights is None else table(weights)
+        return _level2("gaussian")(image, w, self.radius)
 
     def run(self, image: np.ndarray, runtime: FilterRuntime | None = None
             ) -> tuple[np.ndarray, dict]:

@@ -60,6 +60,19 @@
 //   224 FMUL and 300 FADD for its 32 outputs, with two shared loads and two
 //   conversions a row for 16 outputs.  The old kernel took about ten a tap.
 //
+// gaussian_planar, gaussian_folded_planar and box_planar (blur_planar.py)
+//   replace blur.py::_blur_kernel as `_separable_blur_planar` (blur.py:664,
+//   call :784) launches it on (N, H, W) planes, with `rows_prepadded`: r
+//   given halo rows above and below each plane, as the row bands of a split
+//   image carry them.  A plane is an image of one channel, so these launch
+//   gauss_window_rows and box_window_rows below at C = 1 (box_planar as
+//   box_rows routes it: the window kernel in box mode to r = 7), the planes
+//   on the grid's z dimension.  The halo mode is the kernels' `halo` argument and
+//   nothing else: an input image is H + 2r rows, and staging reads virtual
+//   row v as input row v + r, clamped only past the input's last row
+//   (stage_rows's row_lo and row_count), so the loops are the rows
+//   kernels'.
+//
 // box_window_rows and box_wide_h/_v (box_rows) replace
 //   gpu_image_processing_tpu/ops/pallas/blur_mxu.py::_gauss_mxu_kernel in
 //   box mode (the ones band, blur_mxu.py:23-31) and blur.py::_blur_kernel in
@@ -70,7 +83,14 @@
 //   version's bits (maxdiff 0) while the sum stays below 2^24, which every
 //   r below about 32,000 keeps.  The old kernel paid 2r+1 byte loads and adds
 //   an output per pass; the bound of the function is its bytes (one read and
-//   one write of the image), so the redesign spends O(1) work an output:
+//   one write of the image), so the redesign spends O(1) work an output,
+//   except at small radii:
+//   * r <= kBoxWindowMaxRadius (7): gauss_window_rows<Box, r>, the
+//     gaussian's window kernel with each tap's product replaced by the
+//     value itself and the sum multiplied by 1/(2r+1) at the end (exact in
+//     f32: whole numbers under 2^24).  Its outputs are independent sums,
+//     2r+1 adds each a pass, where a running sum is a chain of dependent
+//     adds down a run, and below r = 8 it was the faster of the two.
 //   * box_window_rows, r <= kBoxMaxRadius: one launch.  A block of 256
 //     threads owns a strip of at most 512 lanes over a band of rows (sized
 //     on the host so that the grid fills the SMs' block slots once) and
@@ -87,7 +107,15 @@
 //     recomputes.  What bounds it on the card is latency more than bytes:
 //     each chunk is three dependent phases between barriers, so the
 //     registers are capped (kBlocksPerSM) to keep 4 blocks on an SM;
-//     uncapped, half as many fitted and it ran slower.
+//     uncapped, half as many fitted and it ran slower.  At one channel (the
+//     planar blur) two things cost it more than at three: the ring's rows,
+//     512 bytes apart, put the horizontal pass's kChunk row writes on one
+//     bank (the ring stride is now an odd multiple of 16), and 512-pixel
+//     strips left the last strip of a 3239-pixel row a third full while
+//     its blocks took as long as the others (the strips are now evened
+//     out over the width).  Launch bounds of 5, 6 and 8 blocks, and direct
+//     window sums for r = 1 and 2 (conflict-free loads, 2r + 1 of them),
+//     were slower in development probes on the H100.
 //   * box_wide_h, box_wide_v, r > kBoxMaxRadius: the ring would pass the
 //     shared memory, so two launches through device memory, one thread per
 //     segment of kWideSeg outputs along the pass, a running sum over the
@@ -134,13 +162,27 @@
 
 #include <algorithm>
 #include <array>
+#include <type_traits>
 #include <utility>
 
 #include <mma.h>
 #include <cuda_bf16.h>
 
 #include "launch.cuh"
-#include "taps.cuh"
+
+namespace gip {
+
+// The window kernel's tap orders, as template tags (their names show in
+// profiler traces): Weighted (level 2) sums x[t] * w[t] in tap order;
+// Folded (level 4, r < 3) sums (x[t] + x[2r - t]) * w[t] for t < r in t
+// order, then x[r] * w[r] (ops/pallas/blur.py:318-329); Box sums the x[t],
+// whole numbers and so exact in f32 in any order, then multiplies by
+// 1/(2r+1) (box_rows at small radii).
+struct Weighted {};
+struct Folded {};
+struct Box {};
+
+}  // namespace gip
 
 namespace {
 
@@ -158,14 +200,24 @@ constexpr int kChunk = gip::kStageRows;   // rows staged at a time
 constexpr int kBlocksPerSM = 4;
 constexpr int kMinBandRows = 32;
 
-// The staged input of a strip: `run` divides the strip's pixels.
+// The staged input of a strip: `run` divides the strip's pixels, at most
+// kStripLanes lanes.  Given the image's width, the strips are evened out:
+// the fewest that cover the width, each the same multiple of `run`, so the
+// last is not mostly empty (box at one channel: 3239 pixels are 7 strips of
+// 480, not 6 of 512 and one of 167; a box block takes about as long for a
+// part strip as for a whole one).
 struct Strip {
   int strip_px;      // pixels of a strip
   int in_len;        // bytes of a staged row: (strip_px + 2r) * C
   int in_stride;     // in_len + 15 rounded to an odd multiple of 16
-  __host__ __device__ Strip(int radius, int channels, int run) {
+  __host__ __device__ Strip(int radius, int channels, int run, int width = 0) {
     strip_px = kStripLanes / channels / run * run;
     if (strip_px < run) strip_px = run;
+    if (width > 0) {
+      const int strips = (width + strip_px - 1) / strip_px;
+      const int even = ((width + strips - 1) / strips + run - 1) / run * run;
+      if (even < strip_px) strip_px = even;
+    }
     in_len = (strip_px + 2 * radius) * channels;
     in_stride = (in_len + 15 + 15) / 16 * 16 | 16;   // rows on other banks
   }
@@ -196,17 +248,26 @@ struct GaussGeometry {
 };
 
 // Weighted, input order: value J of a run adds its tap J - k to each output
-// k it reaches.
-template <int R, int K, int J>
+// k it reaches (Box: the value itself).
+template <typename Mode, int R, int K, int J>
 __device__ __forceinline__ void add_input(float (&acc)[K], float v,
                                           const GaussTaps& taps) {
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     if (J - k >= 0 && J - k <= 2 * R) {
-      const float term = __fmul_rn(v, taps.w[J - k]);
+      const float term =
+          std::is_same_v<Mode, gip::Box> ? v : __fmul_rn(v, taps.w[J - k]);
       acc[k] = J == k ? term : __fadd_rn(acc[k], term);
     }
   }
+}
+
+// An output of the input order as the u8 it quantizes to: Box multiplies its
+// sum by 1/(2r+1), which its launch passes as taps.w[0].
+template <typename Mode>
+__device__ __forceinline__ uint8_t window_value(float acc, const GaussTaps& taps) {
+  if constexpr (std::is_same_v<Mode, gip::Box>) acc = __fmul_rn(acc, taps.w[0]);
+  return static_cast<uint8_t>(quantize_u8_int(acc));
 }
 
 // One output from its taps, x(t) the u8 value of tap t, in the order of
@@ -237,21 +298,22 @@ __device__ __forceinline__ float tap_sum(const Load& x, int radius,
   }
 }
 
-template <int R, int J, int K>
+template <typename Mode, int R, int J, int K>
 __device__ __forceinline__ void weighted_run(float (&acc)[K],
                                              const uint8_t* x, int step,
                                              const GaussTaps& taps) {
   if constexpr (J < K + 2 * R) {
-    add_input<R, K, J>(acc, u8_to_f32(x[J * step]), taps);
-    weighted_run<R, J + 1, K>(acc, x, step, taps);
+    add_input<Mode, R, K, J>(acc, u8_to_f32(x[J * step]), taps);
+    weighted_run<Mode, R, J + 1, K>(acc, x, step, taps);
   }
 }
 
-// Weighted with its radius R as a constant (R > 0) takes the input order of
-// register windows; the folded mode, and the weighted radii that have no
-// kernel of their own (R = 0), sum each output from its taps.
+// Weighted and Box with the radius R as a constant (R > 0) take the input
+// order of register windows; the folded mode, and the weighted radii that
+// have no kernel of their own (R = 0), sum each output from its taps (Box
+// runs only at constant radii).
 template <typename Mode, int R>
-constexpr bool kInputOrder = std::is_same_v<Mode, gip::Weighted> && R > 0;
+constexpr bool kInputOrder = !std::is_same_v<Mode, gip::Folded> && R > 0;
 
 // Horizontal pass of `nrows` staged rows into window rows 0.. of `win`: a
 // thread takes one (channel, run of kRunH pixels) pair, channel fastest (a
@@ -275,10 +337,10 @@ __device__ __forceinline__ void gauss_horizontal(
     uint8_t* h = win + k * kStripLanes + p0 * C + ch;
     if constexpr (kInputOrder<Mode, R>) {
       float acc[kRunH];
-      weighted_run<R, 0, kRunH>(acc, x, C, taps);
+      weighted_run<Mode, R, 0, kRunH>(acc, x, C, taps);
 #pragma unroll
       for (int i = 0; i < kRunH; ++i) {
-        if (i < n) h[i * C] = static_cast<uint8_t>(quantize_u8_int(acc[i]));
+        if (i < n) h[i * C] = window_value<Mode>(acc[i], taps);
       }
     } else {
 #pragma unroll 4
@@ -291,14 +353,15 @@ __device__ __forceinline__ void gauss_horizontal(
   }
 }
 
-template <int R, int J, int K>
+template <typename Mode, int R, int J, int K>
 __device__ __forceinline__ void weighted_column(float (&a0)[K], float (&a1)[K],
                                                 const uint8_t* col,
                                                 const GaussTaps& taps) {
   if constexpr (J < K + 2 * R) {
-    add_input<R, K, J>(a0, u8_to_f32(col[J * kStripLanes]), taps);
-    add_input<R, K, J>(a1, u8_to_f32(col[J * kStripLanes + kBlockThreads]), taps);
-    weighted_column<R, J + 1, K>(a0, a1, col, taps);
+    add_input<Mode, R, K, J>(a0, u8_to_f32(col[J * kStripLanes]), taps);
+    add_input<Mode, R, K, J>(a1, u8_to_f32(col[J * kStripLanes + kBlockThreads]),
+                             taps);
+    weighted_column<Mode, R, J + 1, K>(a0, a1, col, taps);
   }
 }
 
@@ -314,13 +377,13 @@ __device__ __forceinline__ void gauss_vertical(const uint8_t* win,
   const uint8_t* col = win + lane0;
   if constexpr (kInputOrder<Mode, R>) {
     float a0[kChunk], a1[kChunk];
-    weighted_column<R, 0, kChunk>(a0, a1, col, taps);
+    weighted_column<Mode, R, 0, kChunk>(a0, a1, col, taps);
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) {
       if (k < rows_out) {
         uint8_t* o = out + static_cast<size_t>(k) * lanes;
-        if (lane0 < valid_lanes) o[lane0] = static_cast<uint8_t>(quantize_u8_int(a0[k]));
-        if (lane1 < valid_lanes) o[lane1] = static_cast<uint8_t>(quantize_u8_int(a1[k]));
+        if (lane0 < valid_lanes) o[lane0] = window_value<Mode>(a0[k], taps);
+        if (lane1 < valid_lanes) o[lane1] = window_value<Mode>(a1[k], taps);
       }
     }
   } else {
@@ -344,6 +407,10 @@ __device__ __forceinline__ void gauss_vertical(const uint8_t* win,
 
 // blockIdx.z is the image of the batch; band_rows is a multiple of kChunk.
 // R is the radius, or 0 for a kernel that takes it at run time.
+// halo: 0, or r when each input image carries r given halo rows above and
+// below its `height` output rows (the planar blur's rows_prepadded): then
+// virtual row v is input row v + r, clamped only past the input's last
+// row, so the vertical pass reads the halo rows as given.
 // Registers: 64 a thread (kBlocksPerSM blocks) to r = 8; past it the window
 // of 2r + kChunk rows lets fewer blocks fit and the unrolled taps want
 // more registers, so 3 blocks.
@@ -351,7 +418,7 @@ template <typename Mode, int R>
 __global__ void __launch_bounds__(kBlockThreads, R <= 8 ? kBlocksPerSM : 3)
 gauss_window_rows(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
                   const __grid_constant__ GaussTaps taps, int radius, int height,
-                  int width, int channels, int band_rows) {
+                  int width, int channels, int halo, int band_rows) {
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int shift[kChunk];
   const int r = R > 0 ? R : radius;
@@ -368,17 +435,18 @@ gauss_window_rows(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
   const int y_end = min(y0 + band_rows, height);
   const int valid_px = min(g.strip.strip_px, width - px0);
   const int valid_lanes = valid_px * C;
-  const size_t image = static_cast<size_t>(blockIdx.z) * height * lanes;
-  src += image;
-  dst += image + px0 * C;
+  // An input image is height + 2 * halo rows; src points at its output row 0.
+  src += (static_cast<size_t>(blockIdx.z) * (height + 2 * halo) + halo) * lanes;
+  dst += static_cast<size_t>(blockIdx.z) * height * lanes + px0 * C;
   const int g0 = (px0 - r) * C;   // row lane of staged byte 0
   const auto stage = [&](int v0, int nrows) {
     gip::stage_rows<kBlockThreads>(src, in, shift, g.strip.in_stride, g0,
-                                   g.strip.in_len, lanes, C, v0, nrows, height);
+                                   g.strip.in_len, lanes, C, v0, nrows, -halo,
+                                   height + 2 * halo);
   };
 
   // Window row j of the chunk of output rows yc .. yc + kChunk - 1 is
-  // virtual row yc - r + j (the image row clamp of it).  The first window
+  // virtual row yc - r + j (the input row clamp of it).  The first window
   // is staged and filtered kChunk rows at a time.
   for (int j0 = 0; j0 < g.win_rows; j0 += kChunk) {
     const int nrows = min(kChunk, g.win_rows - j0);
@@ -415,9 +483,9 @@ gauss_window_rows(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
 }
 
 template <typename Mode, int R>
-int launch_gauss_r(const uint8_t* src, uint8_t* dst, const float* weights,
+int launch_gauss_r(const uint8_t* src, uint8_t* dst, const GaussTaps& taps,
                    int radius, int batch, int height, int width, int channels,
-                   cudaStream_t stream) {
+                   int halo, cudaStream_t stream) {
   constexpr auto kernel = gauss_window_rows<Mode, R>;
   const GaussGeometry g(radius, channels);
   cudaError_t err = allow_shared<kernel>(g.bytes());
@@ -428,16 +496,14 @@ int launch_gauss_r(const uint8_t* src, uint8_t* dst, const float* weights,
                                    static_cast<long long>(columns) * batch,
                                    height, kChunk, kMinBandRows, &band_rows);
   if (err != cudaSuccess) return err;
-  GaussTaps taps = {};
-  std::copy(weights, weights + 2 * radius + 1, taps.w);
   kernel<<<dim3(columns, (height + band_rows - 1) / band_rows, batch),
            kBlockThreads, g.bytes(), stream>>>(src, dst, taps, radius, height,
-                                               width, channels, band_rows);
+                                               width, channels, halo, band_rows);
   return cudaGetLastError();
 }
 
-using GaussLaunch = int (*)(const uint8_t*, uint8_t*, const float*, int, int,
-                            int, int, int, cudaStream_t);
+using GaussLaunch = int (*)(const uint8_t*, uint8_t*, const GaussTaps&, int,
+                            int, int, int, int, int, cudaStream_t);
 
 // The radii with a kernel of their own: the weighted taps at the API's radii
 // (1 to 15) and the cap, 31; the folded taps below r = 3, the only radii
@@ -454,19 +520,46 @@ constexpr std::array<GaussLaunch, sizeof...(Rs)> gauss_table(
   return {&launch_gauss_r<Mode, specialised<Mode>(Rs + 1) ? Rs + 1 : 0>...};
 }
 
-// The launch of radius r is entry r - 1.
+// The launch of radius r is entry r - 1.  halo: 0, or r (halo rows given).
 template <typename Mode>
 int launch_gauss(const uint8_t* src, uint8_t* dst, const float* weights,
                  int radius, int batch, int height, int width, int channels,
-                 void* stream) {
+                 int halo, void* stream) {
   static constexpr auto table =
       gauss_table<Mode>(std::make_integer_sequence<int, kMaxTaps / 2>());
   if (radius < 1 || radius > kMaxTaps / 2 || channels < 1 ||
-      channels > kGaussMaxChannels) {
+      channels > kGaussMaxChannels || (halo != 0 && halo != radius)) {
     return cudaErrorInvalidValue;
   }
-  return table[radius - 1](src, dst, weights, radius, batch, height, width,
-                           channels, static_cast<cudaStream_t>(stream));
+  GaussTaps taps = {};
+  std::copy(weights, weights + 2 * radius + 1, taps.w);
+  return table[radius - 1](src, dst, taps, radius, batch, height, width,
+                           channels, halo, static_cast<cudaStream_t>(stream));
+}
+
+// Box at radii up to kBoxWindowMaxRadius takes the window kernel in box
+// mode (Box), whose outputs are independent sums with no running chain.  In
+// development probes on the H100 at 2146x3239x3 it beat box_window_rows's
+// running sums to r = 7 and lost from r = 8 (rows: 0.0539 against 0.0910 ms
+// at r = 1, 0.0924 against 0.0995 at r = 7, 0.1013 against 0.0993 at r = 8;
+// planes alike).  Entry r - 1 is radius r.
+constexpr int kBoxWindowMaxRadius = 7;
+
+template <int... Rs>
+constexpr std::array<GaussLaunch, sizeof...(Rs)> box_window_table(
+    std::integer_sequence<int, Rs...>) {
+  return {&launch_gauss_r<gip::Box, Rs + 1>...};
+}
+
+int launch_box_taps(const uint8_t* src, uint8_t* dst, float inv, int radius,
+                    int batch, int height, int width, int channels, int halo,
+                    cudaStream_t stream) {
+  static constexpr auto table =
+      box_window_table(std::make_integer_sequence<int, kBoxWindowMaxRadius>());
+  GaussTaps taps = {};
+  taps.w[0] = inv;
+  return table[radius - 1](src, dst, taps, radius, batch, height, width,
+                           channels, halo, stream);
 }
 
 __device__ __forceinline__ uint8_t box_value(int sum, float inv) {
@@ -484,23 +577,28 @@ constexpr int kBoxMaxChannels = kStripLanes / kRun;   // 16
 struct BoxGeometry {
   Strip strip;
   int ring_rows;     // 2r + kChunk
-  int ring_stride;   // strip_px * C rounded to 16
-  __host__ __device__ BoxGeometry(int radius, int channels)
-      : strip(radius, channels, kRun),
+  // strip_px * C rounded to an odd multiple of 16: the horizontal pass
+  // writes kChunk ring rows at once, which a multiple of 128 bytes (512 at
+  // C = 1) would put on one bank.
+  int ring_stride;
+  __host__ __device__ BoxGeometry(int radius, int channels, int width)
+      : strip(radius, channels, kRun, width),
         ring_rows(2 * radius + kChunk),
-        ring_stride((strip.strip_px * channels + 15) / 16 * 16) {}
+        ring_stride((strip.strip_px * channels + 15) / 16 * 16 | 16) {}
   __host__ __device__ int bytes() const {
     return kChunk * strip.in_stride + ring_rows * ring_stride;
   }
 };
 
+// halo: 0, or r halo rows given above and below each image, as in
+// gauss_window_rows.
 __global__ void __launch_bounds__(kBlockThreads, kBlocksPerSM)
 box_window_rows(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
                 float inv, int radius, int height, int width, int channels,
-                int band_rows) {
+                int halo, int band_rows) {
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int shift[kChunk];
-  const BoxGeometry g(radius, channels);
+  const BoxGeometry g(radius, channels, width);
   uint8_t* in = smem;                        // kChunk staged input rows
   uint8_t* ring = smem + kChunk * g.strip.in_stride;  // quantized horizontal rows
   const int C = channels;
@@ -509,10 +607,9 @@ box_window_rows(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
   const int y0 = blockIdx.y * band_rows;
   const int valid_px = min(g.strip.strip_px, width - px0);
   const int valid_lanes = valid_px * C;
-  const size_t image = static_cast<size_t>(blockIdx.z) * height * lanes;
-  src += image;
-  dst += image + px0 * C;
-  // Virtual row v is image row clamp(v); output row y reads v = y-r .. y+r.
+  src += (static_cast<size_t>(blockIdx.z) * (height + 2 * halo) + halo) * lanes;
+  dst += static_cast<size_t>(blockIdx.z) * height * lanes + px0 * C;
+  // Virtual row v is input row clamp(v); output row y reads v = y-r .. y+r.
   const int v_begin = y0 - radius;
   const int v_end = min(y0 + band_rows, height) + radius;
   const int g0 = (px0 - radius) * C;   // row lane of staged byte 0
@@ -538,7 +635,7 @@ box_window_rows(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
     const int nrows = min(kChunk, v_end - vc);
     gip::stage_rows<kBlockThreads, false>(src, in, shift, g.strip.in_stride, g0,
                                           g.strip.in_len, lanes, C, vc, nrows,
-                                          height);
+                                          -halo, height + 2 * halo);
     __syncthreads();
 
     // Horizontal: one running sum a (row, channel, run of kRun pixels).
@@ -597,13 +694,17 @@ box_window_rows(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
 }
 
 int launch_box_window(const uint8_t* src, uint8_t* dst, float inv, int radius,
-                      int batch, int height, int width, int channels,
+                      int batch, int height, int width, int channels, int halo,
                       void* stream) {
   if (radius < 1 || radius > kBoxMaxRadius || channels < 1 ||
-      channels > kBoxMaxChannels) {
+      channels > kBoxMaxChannels || (halo != 0 && halo != radius)) {
     return cudaErrorInvalidValue;
   }
-  const BoxGeometry g(radius, channels);
+  if (radius <= kBoxWindowMaxRadius) {
+    return launch_box_taps(src, dst, inv, radius, batch, height, width,
+                           channels, halo, static_cast<cudaStream_t>(stream));
+  }
+  const BoxGeometry g(radius, channels, width);
   cudaError_t err = allow_shared<box_window_rows>(g.bytes());
   if (err != cudaSuccess) return err;
   const int columns = (width + g.strip.strip_px - 1) / g.strip.strip_px;
@@ -615,7 +716,7 @@ int launch_box_window(const uint8_t* src, uint8_t* dst, float inv, int radius,
   box_window_rows<<<dim3(columns, (height + band_rows - 1) / band_rows, batch),
                     kBlockThreads, g.bytes(),
                     static_cast<cudaStream_t>(stream)>>>(
-      src, dst, inv, radius, height, width, channels, band_rows);
+      src, dst, inv, radius, height, width, channels, halo, band_rows);
   return cudaGetLastError();
 }
 
@@ -923,7 +1024,7 @@ extern "C" int gip_gaussian_rows(const uint8_t* src, uint8_t* dst,
                                  int height, int width, int channels,
                                  void* stream) {
   return launch_gauss<gip::Weighted>(src, dst, weights, radius, batch, height,
-                                     width, channels, stream);
+                                     width, channels, 0, stream);
 }
 
 extern "C" int gip_gaussian_folded_rows(const uint8_t* src, uint8_t* dst,
@@ -931,7 +1032,36 @@ extern "C" int gip_gaussian_folded_rows(const uint8_t* src, uint8_t* dst,
                                         int batch, int height, int width,
                                         int channels, void* stream) {
   return launch_gauss<gip::Folded>(src, dst, weights, radius, batch, height,
-                                   width, channels, stream);
+                                   width, channels, 0, stream);
+}
+
+// The planar blur (K5): src (N, H, W) uint8 planes, or (N, H + 2r, W) when
+// rows_prepadded; dst (N, H, W); the window kernels at one channel, each
+// plane an image of the batch.  weights as above, 1 <= r <= 31.
+extern "C" int gip_gaussian_planar(const uint8_t* src, uint8_t* dst,
+                                   const float* weights, int radius,
+                                   int planes, int height, int width,
+                                   int rows_prepadded, void* stream) {
+  return launch_gauss<gip::Weighted>(src, dst, weights, radius, planes,
+                                     height, width, 1,
+                                     rows_prepadded ? radius : 0, stream);
+}
+
+extern "C" int gip_gaussian_folded_planar(const uint8_t* src, uint8_t* dst,
+                                          const float* weights, int radius,
+                                          int planes, int height, int width,
+                                          int rows_prepadded, void* stream) {
+  return launch_gauss<gip::Folded>(src, dst, weights, radius, planes, height,
+                                   width, 1, rows_prepadded ? radius : 0,
+                                   stream);
+}
+
+// inv: the f32 reciprocal 1/(2r+1); 1 <= r <= 64.
+extern "C" int gip_box_planar(const uint8_t* src, uint8_t* dst, float inv,
+                              int radius, int planes, int height, int width,
+                              int rows_prepadded, void* stream) {
+  return launch_box_window(src, dst, inv, radius, planes, height, width, 1,
+                           rows_prepadded ? radius : 0, stream);
 }
 
 // hi, lo: (2r+1,) float32 tables of exact bf16 values, made on the host;
@@ -951,7 +1081,7 @@ extern "C" int gip_box_window_rows(const uint8_t* src, uint8_t* dst, float inv,
                                    int radius, int batch, int height,
                                    int width, int channels, void* stream) {
   return launch_box_window(src, dst, inv, radius, batch, height, width,
-                           channels, stream);
+                           channels, 0, stream);
 }
 
 extern "C" int gip_box_wide_rows(const uint8_t* src, uint8_t* tmp, uint8_t* dst,

@@ -15,10 +15,12 @@
   `BAND_MAX_FRACTION`), as the TPU kernel was held to level 4's "within 1 of
   level 2"; it is deterministic, and a batch equals its single launches.
 * `box_rows` replaces `_blur_kernel` in box mode and `_gauss_mxu_kernel` in
-  box mode, at levels 2 and 4: integer running window sums, exact in any
-  order, so bit-exact.  Routed on the radius: up to `BOX_WINDOW_MAX_RADIUS`
-  one launch with the intermediate in shared memory (`box_window_rows`),
-  past it two launches through device memory (`box_wide_h`, `box_wide_v`),
+  box mode, at levels 2 and 4: integer window sums, exact in any order, so
+  bit-exact.  Routed on the radius: to r = 7 the gaussian's window kernel
+  with plain sums (`gauss_window_rows<Box, r>`), then up to
+  `BOX_WINDOW_MAX_RADIUS` one launch of running sums with the intermediate
+  in shared memory (`box_window_rows`), past it two launches through device
+  memory (`box_wide_h`, `box_wide_v`),
   whose first window is summed in closed form, so a radius wider than the
   image costs O(W) and O(H) loads a segment, not O(r).
 
@@ -44,6 +46,10 @@ _SIGNATURES = {
     "gip_gaussian_band_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gip_box_window_rows": [_P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _P],
     "gip_box_wide_rows": [_P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _P],
+    # The planar blur (blur_planar.py): the window kernels at one channel.
+    "gip_gaussian_planar": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gip_gaussian_folded_planar": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gip_box_planar": [_P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _P],
 }
 
 #: The grid's z dimension, which carries the batch, holds at most this many.
@@ -105,6 +111,18 @@ def check_table(table: torch.Tensor, rows: torch.Tensor, radius: int,
             f"on {rows.device}" + (" or the host" if on_host else ""))
 
 
+def library(device: torch.device) -> ctypes.CDLL:
+    """blur.cu's library, built first if needed."""
+    return build.load("blur", device, _SIGNATURES)
+
+
+def host_taps(table: torch.Tensor) -> ctypes.Array:
+    """A (2r+1,) float32 table as the host array the gaussian kernels copy
+    into their launch parameters (a table on the card is read back, which
+    waits for the card)."""
+    return (ctypes.c_float * table.numel())(*table.tolist())
+
+
 def _launch(fn_name: str, rows: torch.Tensor, channels: int, radius: int,
             *tables_or_scale, scratch: bool = False,
             taps: torch.Tensor | None = None) -> torch.Tensor:
@@ -115,10 +133,9 @@ def _launch(fn_name: str, rows: torch.Tensor, channels: int, radius: int,
     batch, height, width = check_rows(rows, channels)
     if radius < 1:
         raise ValueError(f"radius must be >= 1; got {radius}")
-    lib = build.load("blur", rows.device, _SIGNATURES)
+    lib = library(rows.device)
     if taps is not None:
-        tables_or_scale = ((ctypes.c_float * taps.numel())(*taps.tolist()),
-                           *tables_or_scale)
+        tables_or_scale = (host_taps(taps), *tables_or_scale)
     out = torch.empty_like(rows)
     buffers = [rows.data_ptr(), out.data_ptr()]
     if scratch:

@@ -1,4 +1,4 @@
-"""The fused planar blur kernel of `blur_planar.cu` and its plain versions.
+"""The planar blur (K5) and its plain versions.
 
 `gaussian_planar` (level 2), `gaussian_folded_planar` (level 4, r < 3) and
 `box_planar` replace the TPU kernel `ops/pallas/blur.py::_blur_kernel` as
@@ -8,35 +8,29 @@ every plane on its own in one launch, both passes in it.  With
 `rows_prepadded=True` the input is (N, H + 2r, W): r given halo rows above
 and below each plane, which the vertical pass reads unclamped.
 
-The fused tile is sized for at most `MAX_KERNEL_TAPS` taps (r <= 31); a
-larger radius raises ValueError, on every device.  On a CPU tensor a wrapper
-returns the plain version; on a CUDA tensor it launches the kernel or
-raises.
+A plane is an image of one channel, so these launch the rows kernels of
+`blur.cu` at one channel, `gauss_window_rows` and `box_window_rows` (box
+routed on the radius as `blur.box_rows` routes it), whose staging reads the
+halo rows when they are given.  They take
+2r + 1 <= `MAX_KERNEL_TAPS` taps (r <= 31), as the TPU kernel's planar path
+did; a larger radius raises ValueError, on every device.  On a CPU tensor a
+wrapper returns the plain version; on a CUDA tensor it launches the kernel
+or raises.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from ...core.config import MAX_KERNEL_TAPS
 from .. import interleaved
 from ..weights import box_inv_taps_f32
-from . import LAUNCHES, build
+from . import LAUNCHES, blur, build
 from .blur import MAX_BATCH, check_table
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    "gip_gaussian_planar": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gip_gaussian_folded_planar": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gip_box_planar": [_P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _P],
-}
-
-#: Output rows a block owns (kTileH of blur_planar.cu and sobel_planar.cu);
-#: the grid's y dimension holds at most 65535 of them.
-_TILE_ROWS = 32
-MAX_HEIGHT = 65535 * _TILE_ROWS
+#: Output rows of one launch: the window kernels' row bands are at least 32
+#: rows, and the grid's y dimension holds at most 65535 of them.
+MAX_HEIGHT = 65535 * 32
 
 
 def gaussian_planar_plain(planes: torch.Tensor, weights: torch.Tensor,
@@ -63,7 +57,7 @@ def box_planar_plain(planes: torch.Tensor, radius: int,
 def check_planes(planes: torch.Tensor, radius: int,
                  rows_prepadded: bool) -> tuple[int, int, int]:
     """(planes, output height, width) of contiguous (N, H[+2r], W) uint8
-    planes at a radius the fused tile takes; raises otherwise."""
+    planes at a radius the planar blur takes; raises otherwise."""
     if (planes.dtype != torch.uint8 or planes.dim() != 3
             or not planes.is_contiguous()):
         raise ValueError(
@@ -73,7 +67,7 @@ def check_planes(planes: torch.Tensor, radius: int,
         raise ValueError(f"radius must be >= 1; got {radius}")
     if 2 * radius + 1 > MAX_KERNEL_TAPS:
         raise ValueError(
-            f"the fused planar blur takes at most MAX_KERNEL_TAPS = "
+            f"the planar blur takes at most MAX_KERNEL_TAPS = "
             f"{MAX_KERNEL_TAPS} taps (r <= {(MAX_KERNEL_TAPS - 1) // 2}); got "
             f"r = {radius}")
     n, rows, width = planes.shape
@@ -90,8 +84,13 @@ def check_planes(planes: torch.Tensor, radius: int,
 
 def _launch(fn_name: str, planes: torch.Tensor, dims: tuple[int, int, int],
             radius: int, rows_prepadded: bool, table_or_scale) -> torch.Tensor:
+    """Launch one of blur.cu's planar functions; `table_or_scale` is the
+    gaussian's table (a tensor, copied into the launch) or the box's f32
+    scale."""
     n, height, width = dims
-    lib = build.load("blur_planar", planes.device, _SIGNATURES)
+    lib = blur.library(planes.device)
+    if isinstance(table_or_scale, torch.Tensor):
+        table_or_scale = blur.host_taps(table_or_scale)
     out = torch.empty((n, height, width), dtype=torch.uint8,
                       device=planes.device)
     with torch.cuda.device(planes.device):
@@ -107,14 +106,16 @@ def gaussian_planar(planes: torch.Tensor, weights: torch.Tensor, radius: int,
                     rows_prepadded: bool = False) -> torch.Tensor:
     """Separable gaussian blur of each plane, level-2 numerics.
 
-    `weights` is the (2r+1,) float32 table on the same device as `planes`.
+    `weights` is the (2r+1,) float32 table, on the host or on `planes`'
+    device; the kernel takes its values by value, so a table on the card is
+    read back first, which waits for the card.
     """
     dims = check_planes(planes, radius, rows_prepadded)
-    check_table(weights, planes, radius, "weights")
+    check_table(weights, planes, radius, "weights", on_host=True)
     if planes.device.type == "cpu":
         return gaussian_planar_plain(planes, weights, radius, rows_prepadded)
     out = _launch("gip_gaussian_planar", planes, dims, radius, rows_prepadded,
-                  weights.data_ptr())
+                  weights)
     LAUNCHES["gaussian_planar"] += 1
     return out
 
@@ -123,14 +124,14 @@ def gaussian_folded_planar(planes: torch.Tensor, weights: torch.Tensor,
                            radius: int, rows_prepadded: bool = False
                            ) -> torch.Tensor:
     """Separable gaussian blur of each plane with symmetric tap pairs
-    (level 4, r < 3)."""
+    (level 4, r < 3); `weights` as in `gaussian_planar`."""
     dims = check_planes(planes, radius, rows_prepadded)
-    check_table(weights, planes, radius, "weights")
+    check_table(weights, planes, radius, "weights", on_host=True)
     if planes.device.type == "cpu":
         return gaussian_folded_planar_plain(planes, weights, radius,
                                             rows_prepadded)
     out = _launch("gip_gaussian_folded_planar", planes, dims, radius,
-                  rows_prepadded, weights.data_ptr())
+                  rows_prepadded, weights)
     LAUNCHES["gaussian_folded_planar"] += 1
     return out
 

@@ -33,7 +33,7 @@ import torch
 SOURCE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SOURCE_DIR / "_build"
 #: Every library the port builds: the kernels, then the host PNG helper.
-SOURCES = ("blur", "sobel", "blur_planar", "sobel_planar", "png_unfilter")
+SOURCES = ("blur", "sobel", "png_unfilter")
 
 #: Hopper only; `-fmad=false` keeps every multiply and add rounded apart
 #: (the kernels also use `_rn` intrinsics).  Never `--use_fast_math`.

@@ -9,6 +9,7 @@
 #pragma once
 
 #include <algorithm>
+#include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -22,6 +23,11 @@ __device__ __forceinline__ float quantize_u8(float x) {
 
 __device__ __forceinline__ int clamp_index(int i, int n) {
   return min(max(i, 0), n - 1);
+}
+
+// i clamped to the rows lo .. lo + count - 1.
+__device__ __forceinline__ int clamp_row(int i, int lo, int count) {
+  return min(max(i, lo), lo + count - 1);
 }
 
 // The f32 value of 0 <= v < 2^23 on the FP32 unit, not the conversion unit
@@ -59,9 +65,13 @@ constexpr int kStageRows = 16;
 
 // Stage `nrows` (<= kStageRows) rows of interleaved (H, W*C) uint8 rows into
 // shared memory, a block of kBlockThreads threads: staged byte e of row k,
-// at staged[k * stride + shift[k] + e] for e < len, is lane g0 + e of image
-// row clamp(v0 + k), its pixel clamped to [0, W - 1] in its own channel (g0
-// is a multiple of C, so the channel is e % C).  `stride` is at least
+// at staged[k * stride + shift[k] + e] for e < len, is lane g0 + e of row
+// clamp(v0 + k, row_lo, row_lo + row_count - 1) of `src` (rows row_lo ..
+// row_lo + row_count - 1 are the image's: row_lo = 0 and row_count = H for
+// an image alone; with h given halo rows above and below, `src` points at
+// the first row below them, row_lo = -h and row_count = H + 2h), its pixel
+// clamped to [0, W - 1] in its own channel (g0 is a multiple of C, so the
+// channel is e % C).  `stride` is at least
 // (len + 30) / 16 * 16, and `staged` and `stride` are multiples of 16.  A
 // span that lies inside the row is copied as the 16-byte aligned chunks
 // that cover it (shift[k] is the span's phase; the bytes around it are the
@@ -76,20 +86,23 @@ template <int kBlockThreads, bool kAsync = true>
 __device__ __forceinline__ void stage_rows(
     const uint8_t* __restrict__ src, uint8_t* __restrict__ staged, int* shift,
     int stride, int g0, int len, int lanes, int channels, int v0, int nrows,
-    int height) {
+    int row_lo, int row_count) {
+  const auto row_at = [&](int v) {
+    return src + static_cast<ptrdiff_t>(clamp_row(v, row_lo, row_count)) * lanes;
+  };
   if (g0 >= 0 && g0 + len <= lanes) {
-    const uint8_t* image_end = src + static_cast<size_t>(height) * lanes;
+    const uint8_t* image_begin = src + static_cast<ptrdiff_t>(row_lo) * lanes;
+    const uint8_t* image_end = image_begin + static_cast<size_t>(row_count) * lanes;
 #pragma unroll 2
     for (int k = threadIdx.x / 32; k < nrows; k += kBlockThreads / 32) {
-      const uint8_t* a =
-          src + static_cast<size_t>(clamp_index(v0 + k, height)) * lanes + g0;
+      const uint8_t* a = row_at(v0 + k) + g0;
       const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(a) & 15);
       const uint8_t* base = a - sh;   // 16-byte aligned
       uint8_t* row = staged + k * stride;
       const int end = sh + len;
       if (threadIdx.x % 32 == 0) shift[k] = sh;
       for (int c = threadIdx.x % 32 * 16; c < end; c += 32 * 16) {
-        if (base + c >= src && base + c + 16 <= image_end) {
+        if (base + c >= image_begin && base + c + 16 <= image_end) {
           if constexpr (kAsync) {
             copy16_async(row + c, base + c);
           } else {
@@ -113,9 +126,7 @@ __device__ __forceinline__ void stage_rows(
       uint8_t v[kStageRows];
 #pragma unroll
       for (int k = 0; k < kStageRows; ++k) {
-        v[k] = k < nrows
-                   ? src[static_cast<size_t>(clamp_index(v0 + k, height)) * lanes + at]
-                   : 0;
+        v[k] = k < nrows ? row_at(v0 + k)[at] : 0;
       }
 #pragma unroll
       for (int k = 0; k < kStageRows; ++k) {

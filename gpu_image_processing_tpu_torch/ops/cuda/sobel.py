@@ -7,7 +7,8 @@ kernels `ops/pallas/sobel.py::_sobel_kernel_interleaved` and
 rows, or a (B, H, W*C) batch, with C in {1, 3, 4}: one template,
 `sobel_tile_rows`, whose blocks stage a tile with 16-byte loads, compute
 each pixel's grey value once into shared memory, run 3x3 register windows
-down columns and store the replicated magnitude with 16-byte stores.  On a
+down columns and store the replicated magnitude with 16-byte stores.  The
+planar Sobel (`sobel_planar.py`) launches the same template on planes.  On a
 CPU tensor they return the plain version; on a CUDA tensor they launch the
 kernel or raise.
 """
@@ -27,7 +28,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "gip_sobel_rows": [_P, _P, _I, _I, _I, _I, _P],
     "gip_sobel_f32_rows": [_P, _P, _I, _I, _I, _I, _P],
+    # The planar Sobel (sobel_planar.py): the same template on planes.
+    "gip_sobel_planar": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gip_sobel_f32_planar": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
+
+#: Output rows of one launch: a tile is 8 rows, and the grid's y dimension
+#: holds at most 65535 tiles.
+MAX_HEIGHT = 65535 * 8
 
 
 def sobel_rows_plain(rows: torch.Tensor, width: int,
@@ -42,6 +50,11 @@ def sobel_f32_rows_plain(rows: torch.Tensor, width: int,
     return interleaved.sobel_rows(rows, 1, width, channels)
 
 
+def library(device: torch.device) -> ctypes.CDLL:
+    """sobel.cu's library, built first if needed."""
+    return build.load("sobel", device, _SIGNATURES)
+
+
 def _launch(fn_name: str, rows: torch.Tensor, width: int,
             channels: int) -> torch.Tensor:
     batch, height, got_width = check_rows(rows, channels)
@@ -49,7 +62,7 @@ def _launch(fn_name: str, rows: torch.Tensor, width: int,
         raise ValueError(
             f"expected {width} pixels of C in {VALID_CHANNELS}; got "
             f"{got_width} of C={channels}")
-    lib = build.load("sobel", rows.device, _SIGNATURES)
+    lib = library(rows.device)
     out = torch.empty_like(rows)
     with torch.cuda.device(rows.device):
         code = getattr(lib, fn_name)(rows.data_ptr(), out.data_ptr(), batch,

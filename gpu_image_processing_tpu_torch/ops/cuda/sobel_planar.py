@@ -1,4 +1,4 @@
-"""The planar Sobel kernel of `sobel_planar.cu` and its plain version.
+"""The planar Sobel (K6, K7) and its plain version.
 
 `sobel_planar` (grey quantized to uint8, level 2) and `sobel_f32_planar`
 (grey kept in f32, the level-1 numerics that level 4 serves) replace the TPU
@@ -7,28 +7,21 @@ image) and `_sobel_kernel_batch` (a (B, C, H, W) batch), C in {1, 3, 4}.
 With `rows_prepadded=True` each image has one given halo row above and
 below (H + 2 rows in, H out); `zero_rows=False` leaves the first and last
 rows as computed, for a caller that zeroes the whole image's border rows
-itself.  On a CPU tensor they return the plain version; on a CUDA tensor
+itself.  They launch `sobel.cu`'s `sobel_tile_rows` template in its planar
+layout.  On a CPU tensor they return the plain version; on a CUDA tensor
 they launch the kernel or raise.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from ...core.config import VALID_CHANNELS
 from .. import interleaved
 from ..rounding import quantize_u8_f32
-from . import LAUNCHES, build
+from . import LAUNCHES, build, sobel
 from .blur import MAX_BATCH
-from .blur_planar import MAX_HEIGHT
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    "gip_sobel_planar": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "gip_sobel_f32_planar": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
-}
+from .sobel import MAX_HEIGHT
 
 
 def sobel_planar_plain(planes: torch.Tensor, level: int,
@@ -71,7 +64,7 @@ def check_planes(planes: torch.Tensor,
 def _launch(fn_name: str, planes: torch.Tensor, rows_prepadded: bool,
             zero_rows: bool) -> torch.Tensor:
     batch, channels, height, width = check_planes(planes, rows_prepadded)
-    lib = build.load("sobel_planar", planes.device, _SIGNATURES)
+    lib = sobel.library(planes.device)
     out = torch.empty((*planes.shape[:-2], height, width), dtype=torch.uint8,
                       device=planes.device)
     with torch.cuda.device(planes.device):

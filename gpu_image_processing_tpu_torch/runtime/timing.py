@@ -1,10 +1,21 @@
 """Kernel timing with the reference's discipline: only the filter's device
 work is timed (image_filters.cu:804-894).
 
-On a CUDA device, CUDA events on the current stream bracket the launches;
-host-to-device and device-to-host copies happen outside.  On the CPU the
-same bracket is wall time.  The caller runs the work once untimed first,
-so a kernel's first call (which builds it) is never timed.
+On a CUDA device, CUDA events on the current stream bracket the launches,
+and the card's queue is filled first: a spin kernel (`torch.cuda._sleep`)
+runs while the host enqueues the filter, so the start event is reached only
+once every launch of the filter waits behind it, and the events time the
+card's work, not the host's work in and between the wrappers (tens of
+microseconds a launch, as long as the kernels themselves).  The spin is
+sized from the host's own enqueue time for the call (`spin_cycles`), which
+the caller measures on its untimed first run and which every timed run
+updates.  If the start event has completed by the time the filter returns
+on the host, the card went idle inside the bracket: that reading is not
+kept, and the run goes again with a longer spin (up to `MAX_SPIN_MS`, where
+the reading is kept as it is).  Host-to-device and device-to-host copies
+happen outside.  On the CPU the bracket is wall time.  The caller runs the
+work once untimed first, so a kernel's first call (which builds it) is
+never timed.
 """
 
 from __future__ import annotations
@@ -14,25 +25,63 @@ from typing import Callable
 
 import torch
 
+#: The spin lasts SPIN_FACTOR times the host's enqueue time plus SPIN_PAD_MS.
+SPIN_FACTOR = 2.0
+SPIN_PAD_MS = 0.05
+#: The longest spin: a first run that built a kernel measures the build.
+MAX_SPIN_MS = 200.0
+#: The spin counts SM clock cycles; at the H100's highest SM clock, so it
+#: lasts at least as long at any lower clock.
+SPIN_CLOCK_HZ = 1.98e9
 
-def timed(fn: Callable[[], torch.Tensor], device: torch.device,
-          reps: int) -> tuple[torch.Tensor, float]:
-    """Run `fn` `reps` times; return its last result and the least time in ms."""
-    best = float("inf")
+
+def spin_ms(enqueue_ms: float) -> float:
+    """The spin, in ms, that outlasts a host enqueue of `enqueue_ms`."""
+    return min(SPIN_FACTOR * max(enqueue_ms, 0.0) + SPIN_PAD_MS, MAX_SPIN_MS)
+
+
+def spin_cycles(ms: float) -> int:
+    """SM clock cycles of a spin of `ms` at `SPIN_CLOCK_HZ`."""
+    return int(ms * 1e-3 * SPIN_CLOCK_HZ)
+
+
+def _timed_on_card(fn: Callable[[], torch.Tensor], device: torch.device,
+                   enqueue_ms: float) -> tuple[torch.Tensor, float, float]:
+    """(result, card ms, host enqueue ms) of one run of `fn` behind a spin."""
+    stream = torch.cuda.current_stream(device)
+    spin = spin_ms(enqueue_ms)
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.device(device):
+            torch.cuda._sleep(spin_cycles(spin))
+        start.record(stream)
+        t0 = time.perf_counter()
+        out = fn()
+        host_ms = (time.perf_counter() - t0) * 1000.0
+        idle = start.query()   # the spin ended before the host was done
+        end.record(stream)
+        end.synchronize()
+        if not idle or spin >= MAX_SPIN_MS:
+            return out, start.elapsed_time(end), host_ms
+        spin = max(2.0 * spin, spin_ms(host_ms))
+
+
+def timed(fn: Callable[[], torch.Tensor], device: torch.device, reps: int,
+          enqueue_ms: float = 0.0) -> tuple[torch.Tensor, float, float]:
+    """Run `fn` `reps` times; return its last result, the least time in ms
+    and the least host time of a run in ms.  `enqueue_ms`: the host's time
+    to run `fn` measured before, which sizes the card's spin."""
+    best = host_best = float("inf")
     out = None
     for _ in range(max(1, reps)):
         if device.type == "cuda":
-            stream = torch.cuda.current_stream(device)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record(stream)
-            out = fn()
-            end.record(stream)
-            end.synchronize()
-            ms = start.elapsed_time(end)
+            out, ms, host_ms = _timed_on_card(fn, device, enqueue_ms)
+            enqueue_ms = host_ms
         else:
             t0 = time.perf_counter()
             out = fn()
-            ms = (time.perf_counter() - t0) * 1000.0
+            ms = host_ms = (time.perf_counter() - t0) * 1000.0
         best = min(best, ms)
-    return out, best
+        host_best = min(host_best, host_ms)
+    return out, best, host_best

@@ -18,9 +18,16 @@ least of the runs) are printed beside them.  The cases: `gaussian_rows` at r = 1
 its own), 31 and `gaussian_folded_rows` at r = 1, 2 (sigma as `GAUSS`),
 each given its table where its checkout's kernel takes it (on the host, or
 on the card where an older checkout reads it there), `sobel_rows` and
-`sobel_f32_rows`, `box_rows` at r = 1, 5, 15, 40 and 4000 (wider than the
+`sobel_f32_rows`, `box_rows` at r = 1, 5, 7, 8, 15, 40 and 4000 (wider than the
 image), and `gaussian_band_rows` at r = 3, 15, 31 on the (H, W*C) rows and
-on the (3, H, W) planes of the same image.
+on the (3, H, W) planes of the same image; the planar blur (K5:
+`gaussian_planar` at r = 1, 2, 3, 5, 15, 20, 31, `gaussian_folded_planar` at
+r = 1, 2, `box_planar` at r = 1, 5, 7, 8, 15, 31) and the planar Sobel (K7:
+`sobel_planar`, `sobel_f32_planar`) on the (3, H, W) planes, K5 on the 12
+planes of 4 images and K7 on (4, 3, H, W), their halo-row modes on rows
+BAND of the planes (with `zero_rows=False` for K7, which it also takes
+without halo rows), and the models' forward on the (H, W, 3) tensor
+(`GaussianBlur(level=2)`, `SobelEdgeDetection(level=2)`).
 
 With --ref, it also imports the package of a second checkout, REF, under
 another module name (the package imports itself only relatively), so that
@@ -53,15 +60,21 @@ REPEATS = 3
 # than the host takes to queue ITERS launches.
 SLEEP_CYCLES = 50_000_000
 PACKAGE = "gpu_image_processing_tpu_torch"
-BOX_RADII = (1, 5, 15, 40, 4000)
+BOX_RADII = (1, 5, 7, 8, 15, 40, 4000)
 GAUSS = ((1, 1.0), (3, 2.0), (15, 8.0), (20, 8.0), (31, 8.0))   # (radius, sigma)
 FOLDED = ((1, 1.0), (2, 1.5))
 BAND = ((3, 2.0), (15, 5.0), (31, 8.0))
+PLANAR_GAUSS = ((1, 1.0), (2, 1.5), (3, 2.0), (5, 2.5), (15, 8.0), (20, 8.0),
+                (31, 8.0))
+PLANAR_BOX_RADII = (1, 5, 7, 8, 15, 31)
+HALO_ROWS = (700, 1500)   # rows [a, b) of the planes, given with halo rows
+MODULES = ("ops.cuda.blur", "ops.cuda.sobel", "ops.weights",
+           "ops.cuda.blur_planar", "ops.cuda.sobel_planar", "models.filters")
 
 
 def load_package(root: str, name: str):
-    """(blur, sobel, weights) modules of the package under `root`, imported
-    as the package `name`."""
+    """The `MODULES` of the package under `root`, imported as the package
+    `name`."""
     if name == PACKAGE:
         sys.path.insert(0, root)
     else:
@@ -71,8 +84,7 @@ def load_package(root: str, name: str):
         module = importlib.util.module_from_spec(spec)
         sys.modules[name] = module
         spec.loader.exec_module(module)
-    mods = [importlib.import_module(f"{name}.{m}")
-            for m in ("ops.cuda.blur", "ops.cuda.sobel", "ops.weights")]
+    mods = [importlib.import_module(f"{name}.{m}") for m in MODULES]
     if not mods[0].__file__.startswith(str(Path(root).resolve())):
         raise RuntimeError(f"imported {mods[0].__file__}, not from {root}")
     return mods
@@ -92,7 +104,8 @@ def gaussian_table(weights, fn, rows, table, radius: int, channels: int):
     return host
 
 
-def cases(blur, sobel, weights, rows, planes, width: int, channels: int) -> dict:
+def cases(blur, sobel, weights, blur_planar, sobel_planar, models, rows,
+          planes, width: int, channels: int) -> dict:
     """name -> zero-argument launch of one checkout's kernel."""
     dev = rows.device
     out = {}
@@ -118,6 +131,50 @@ def cases(blur, sobel, weights, rows, planes, width: int, channels: int) -> dict
         out[f"gaussian_band_rows r={r} planes"] = (
             lambda r=r, hi=hi, lo=lo: blur.gaussian_band_rows(planes, hi, lo,
                                                               r, 1))
+    out.update(planar_cases(weights, blur_planar, sobel_planar, models, planes))
+    return out
+
+
+def planar_cases(weights, blur_planar, sobel_planar, models, planes) -> dict:
+    """The planar kernels' cases (K5, K7) and the models' forward."""
+    c, h, w = planes.shape
+    batch4 = planes.unsqueeze(0).repeat(4, 1, 1, 1)   # (4, C, H, W)
+    planes12 = batch4.view(4 * c, h, w)
+    a, b = HALO_ROWS
+    out = {}
+    for name, fn, table in (
+            ("gaussian_planar", blur_planar.gaussian_planar, PLANAR_GAUSS),
+            ("gaussian_folded_planar", blur_planar.gaussian_folded_planar,
+             PLANAR_GAUSS[:2])):
+        for r, sigma in table:
+            wr = gaussian_table(weights, lambda x, t, rr, _c: fn(x, t, rr),
+                                planes, weights.gaussian_kernel_f32(r, sigma),
+                                r, 1)
+            out[f"{name} r={r}"] = lambda fn=fn, r=r, wr=wr: fn(planes, wr, r)
+            if r == 3:
+                band = planes[:, a - r:b + r].contiguous()
+                out[f"{name} r={r} 4 images"] = (
+                    lambda fn=fn, r=r, wr=wr: fn(planes12, wr, r))
+                out[f"{name} r={r} halo rows {a}-{b}"] = (
+                    lambda fn=fn, r=r, wr=wr, band=band: fn(band, wr, r, True))
+    for r in PLANAR_BOX_RADII:
+        out[f"box_planar r={r}"] = lambda r=r: blur_planar.box_planar(planes, r)
+    box_band = planes[:, a - 5:b + 5].contiguous()
+    out[f"box_planar r=5 halo rows {a}-{b}"] = (
+        lambda: blur_planar.box_planar(box_band, 5, True))
+    sobel_band = planes[None, :, a - 1:b + 1].contiguous()
+    for name, fn in (("sobel_planar", sobel_planar.sobel_planar),
+                     ("sobel_f32_planar", sobel_planar.sobel_f32_planar)):
+        out[name] = lambda fn=fn: fn(planes)
+        out[f"{name} 4 images"] = lambda fn=fn: fn(batch4)
+        out[f"{name} zero_rows=False"] = lambda fn=fn: fn(planes, False, False)
+        out[f"{name} halo rows {a}-{b} zero_rows=False"] = (
+            lambda fn=fn: fn(sobel_band, True, False))
+    image = planes.permute(1, 2, 0).contiguous()
+    gauss = models.GaussianBlur(2.0, 3, 2).to(planes.device)
+    edges = models.SobelEdgeDetection(2)
+    out["GaussianBlur(level=2) forward"] = lambda: gauss(image)
+    out["SobelEdgeDetection(level=2) forward"] = lambda: edges(image)
     return out
 
 

@@ -25,6 +25,10 @@ import sys
 from pathlib import Path
 
 CUOBJDUMP = "cuobjdump"
+# The default kernels: the weighted gaussian at r = 3 (rows and planes
+# launch the same instantiation) and the level-2 Sobel at C = 3, whose
+# pattern matches both layouts (sobel_tile_rows<true, 3, false> for rows,
+# <true, 3, true> for planes).
 DEFAULTS = {
     "blur": "gauss_window_rowsIN3gip8WeightedELi3E",
     "sobel": "sobel_tile_rowsILb1ELi3E",

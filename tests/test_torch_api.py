@@ -19,6 +19,7 @@ from gpu_image_processing_tpu.api import filters as jax_api
 from gpu_image_processing_tpu.runtime.dispatch import RUNTIME as JAX_RUNTIME
 from gpu_image_processing_tpu.runtime.dispatch import FusionUnavailable
 from gpu_image_processing_tpu_torch.api import filters as api
+from gpu_image_processing_tpu_torch.runtime import timing
 from gpu_image_processing_tpu_torch.runtime.dispatch import FilterRuntime
 
 from .conftest import make_image
@@ -185,3 +186,70 @@ def test_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# -- runtime/timing.py -----------------------------------------------------------
+
+
+def test_spin_outlasts_the_host_enqueue():
+    # Twice the host's enqueue time and a pad, in SM cycles at the card's
+    # highest clock (so at least that long at any clock), up to the cap.
+    assert timing.spin_ms(0.0) == timing.SPIN_PAD_MS
+    for enqueue in (0.02, 0.05, 1.0, 10.0):
+        ms = timing.spin_ms(enqueue)
+        assert ms == pytest.approx(timing.SPIN_FACTOR * enqueue + timing.SPIN_PAD_MS)
+        assert ms > enqueue
+        assert timing.spin_cycles(ms) == int(ms * 1e-3 * timing.SPIN_CLOCK_HZ)
+    assert timing.spin_ms(1e6) == timing.MAX_SPIN_MS
+    assert timing.spin_ms(-1.0) == timing.SPIN_PAD_MS
+    # A rows launch's host time (tens of us) gives a spin of about 0.1 ms,
+    # not tens of ms.
+    assert timing.spin_ms(0.05) < 0.2
+
+
+def test_cpu_timing_is_wall_time():
+    import time
+
+    def fn():
+        time.sleep(0.005)
+        return torch.zeros(1)
+
+    out, ms, host_ms = timing.timed(fn, torch.device("cpu"), reps=2,
+                                    enqueue_ms=123.0)
+    assert torch.equal(out, torch.zeros(1))
+    assert 5.0 <= ms < 1000.0 and host_ms == ms
+
+
+def test_runtime_keeps_each_keys_enqueue_time(rng):
+    rt = FilterRuntime("cpu")
+    img = make_image(rng, 12, 14, 3)
+    rt.box_blur(img, 2, 2)
+    rt.box_blur(img, 2, 2)
+    (key, enqueue_ms), = rt._warm.items()
+    assert key[:2] == ("box", 2) and enqueue_ms > 0
+
+
+@pytest.mark.cuda
+def test_box_l2_time_ms_reads_the_kernel_time():
+    # time_ms brackets the card's work only: within 10% of the kernel's own
+    # event time, measured with the card's queue filled.
+    if not torch.cuda.is_available():
+        pytest.skip("needs an sm_90 CUDA card")
+    from gpu_image_processing_tpu_torch.ops.cuda import blur
+
+    dev = torch.device("cuda")
+    img = np.random.default_rng(3).integers(0, 256, (2146, 3239, 3), np.uint8)
+    rt = FilterRuntime(dev)
+    rows = torch.from_numpy(img.reshape(2146, -1)).to(dev)
+    for _ in range(10):
+        blur.box_rows(rows, 5, 3)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(20):
+        blur.box_rows(rows, 5, 3)
+    end.record()
+    end.synchronize()
+    kernel_ms = start.elapsed_time(end) / 20
+    time_ms = min(rt.box_blur(img, 5, 2)[1].time_ms for _ in range(5))
+    assert abs(time_ms - kernel_ms) <= 0.1 * kernel_ms, (time_ms, kernel_ms)

@@ -66,6 +66,36 @@ def running_box_rows(rows: np.ndarray, radius: int, channels: int) -> np.ndarray
     return out.astype(np.uint8).reshape(rows.shape)
 
 
+def _window_box_pass(x: np.ndarray, radius: int, axis: int) -> np.ndarray:
+    """One box pass of the window kernel in box mode
+    (`gauss_window_rows<Box, r>`, r <= 7) along `axis`: each output adds its
+    2r + 1 clamped values in f32 in input order, then the f32 scale and
+    floor(x + 0.5) clamped to [0, 255]."""
+    n = x.shape[axis]
+    padded = np.take(x, np.clip(np.arange(-radius, n + radius), 0, n - 1),
+                     axis=axis).astype(np.float32)
+    acc = np.take(padded, np.arange(n), axis=axis)
+    for t in range(1, 2 * radius + 1):
+        acc = (acc + np.take(padded, np.arange(t, n + t), axis=axis)).astype(np.float32)
+    scaled = (acc * box_inv_taps_f32(radius)).astype(np.float32)
+    return np.clip(np.floor(scaled + np.float32(0.5)), 0, 255)
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+@pytest.mark.parametrize("radius", range(1, 8))
+def test_window_box_model_equals_plain(rng, radius, channels):
+    # Sums of at most 15 whole values under 256 are exact in f32, so the
+    # window kernel's order gives the running sums' bits.
+    h, w = 11, 13
+    img = rng.integers(0, 256, size=(2, h, w * channels), dtype=np.uint8)
+    x = img.reshape(2, h, w, channels)
+    got = _window_box_pass(_window_box_pass(x, radius, -2), radius, -3)
+    got = got.astype(np.uint8).reshape(img.shape)
+    plain = blur.box_rows_plain(torch.from_numpy(img), radius, channels).numpy()
+    np.testing.assert_array_equal(got, plain)
+    np.testing.assert_array_equal(got, running_box_rows(img, radius, channels))
+
+
 # (shape, radius): r = 15 and 40 pass both sides of every image here; the
 # last two pass only the width (14 x 9) or only the height (9 x 14).
 BOX_CASES = [((9, 14), r) for r in (1, 2, 5, 15, 40)] + [

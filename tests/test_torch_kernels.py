@@ -184,7 +184,8 @@ def test_kernels_match_plain_on_card(rng, shape):
         wt = weights_to_torch(gaussian_kernel_f32(radius, sigma), dev)
         assert torch.equal(blur.gaussian_rows(rows, wt, radius, c),
                            blur.gaussian_rows_plain(rows, wt, radius, c))
-    for radius in [1, 2, 5, 15, 40]:
+    # Box: the window kernel in box mode to r = 7, running sums from r = 8.
+    for radius in [1, 2, 5, 7, 8, 15, 40]:
         assert torch.equal(blur.box_rows(rows, radius, c),
                            blur.box_rows_plain(rows, radius, c))
     got = sobel.sobel_rows(rows, w, c).cpu().numpy().reshape(h, w, c)

@@ -28,7 +28,7 @@ from gpu_image_processing_tpu_torch.models import (
     get_filter,
 )
 from gpu_image_processing_tpu_torch.ops import fused
-from gpu_image_processing_tpu_torch.ops.cuda import LAUNCHES
+from gpu_image_processing_tpu_torch.ops.cuda import LAUNCHES, blur
 from gpu_image_processing_tpu_torch.runtime.dispatch import FilterRuntime
 
 from . import oracle_numpy as oracle
@@ -168,6 +168,36 @@ def test_gaussian_weights_buffer():
     assert port.to("meta").weights.device.type == "meta"
 
 
+def test_gaussian_host_table(rng, monkeypatch):
+    # A copy of the buffer on the host, bit for bit, which `.to()` leaves
+    # there and `state_dict()` leaves out; forward passes it to the kernel.
+    model = GaussianBlur(sigma=1.5, radius=4, level=2)
+    assert model.host_weights.device.type == "cpu"
+    np.testing.assert_array_equal(model.host_weights.numpy().view(np.uint32),
+                                  model.weights.numpy().view(np.uint32))
+    assert "host_weights" not in model.state_dict()
+    assert set(model.state_dict()) == {"weights"}
+    assert model.host_weights is not model.weights
+    moved = model.to("meta")
+    assert moved.weights.device.type == "meta"
+    assert moved.host_weights.device.type == "cpu"
+    seen = []
+    real = blur.gaussian_rows
+    monkeypatch.setattr(blur, "gaussian_rows", lambda rows, w, *a: (
+        seen.append(w), real(rows, w, *a))[1])
+    model = GaussianBlur(sigma=1.5, radius=4, level=2)
+    img = make_image(rng, 11, 13, 3)
+    out = model(_t(img))
+    assert len(seen) == 1 and seen[0] is model.host_weights
+    np.testing.assert_array_equal(out.numpy(), oracle.gaussian_blur(
+        img, model.weights.numpy(), 4))
+    # Loading a state dict refreshes the host copy.
+    other = GaussianBlur(sigma=3.0, radius=4, level=2)
+    model.load_state_dict(other.state_dict())
+    assert torch.equal(model.host_weights, other.weights)
+    assert model.host_weights.device.type == "cpu"
+
+
 def test_gaussian_forward_takes_the_jax_table(rng):
     img = make_image(rng, 12, 14, 3)
     model = GaussianBlur(sigma=2.0, radius=3, level=2)
@@ -260,8 +290,10 @@ def test_entry_on_card_matches_its_plain_version():
         pytest.skip("needs an sm_90 CUDA card")
     forward, (image, weights) = entry()
     assert image.device.type == "cuda"
-    before = LAUNCHES["gaussian_planar"]
+    before = dict(LAUNCHES)
     out = forward(image, weights)
-    assert LAUNCHES["gaussian_planar"] == before + 1
+    # The (H, W*C) view of the image through the rows kernel, no planar one.
+    assert LAUNCHES["gaussian_rows"] == before.get("gaussian_rows", 0) + 1
+    assert LAUNCHES["gaussian_planar"] == before.get("gaussian_planar", 0)
     np.testing.assert_array_equal(out.cpu().numpy(),
                                   fused.gaussian_fused(image, weights, 3).cpu().numpy())

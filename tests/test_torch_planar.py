@@ -1,6 +1,8 @@
 """The planar surface of the port: K5 (`blur_planar`), K6 and K7
-(`sobel_planar`), the planar registry functions of `ops/cuda/api.py`, and
-the level-1 functions of `ops/ref.py`.
+(`sobel_planar`), the planar registry functions of `ops/cuda/api.py` (which
+run the rows kernels on the (H, W*C) view of an image), and the level-1
+functions of `ops/ref.py`; numpy models of the planar kernels' staging (the
+halo-row index map and the Sobel's zero row pad).
 
 Each plain version (what the kernel computes, in plain torch ops) against
 the TPU kernel it replaces, run as the JAX package's own tests run it on the
@@ -46,6 +48,7 @@ from gpu_image_processing_tpu_torch.ops.cuda import (
     blur,
     blur_planar,
     build,
+    sobel,
     sobel_planar,
 )
 from gpu_image_processing_tpu_torch.ops.weights import weights_to_torch
@@ -53,6 +56,7 @@ from gpu_image_processing_tpu_torch.ops.weights import weights_to_torch
 from . import oracle_numpy as oracle
 from .conftest import make_image
 from .sobel_tolerance import assert_sobel_close
+from .test_torch_rows_redesign import grey_f32, magnitude
 
 SHAPES = [(24, 31, 3), (19, 23, 1), (17, 29, 4)]
 CPU = torch.device("cpu")
@@ -85,7 +89,7 @@ def _table(radius, sigma):
     return w, weights_to_torch(w, CPU)
 
 
-# -- K5: the fused planar blur -----------------------------------------------
+# -- K5: the planar blur -----------------------------------------------------
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -127,8 +131,8 @@ def test_box_planar_plain_matches_blur_kernel(rng, shape, radius):
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("radius", [2, 40])
 def test_planar_box_route_matches_box_mxu(rng, shape, radius):
-    # r <= 31: the fused planar blur; above: the two-pass box_rows on the
-    # planes.  Both exact, like the MXU box.
+    # box_rows on the (H, W*C) view at every radius (one launch to r = 64,
+    # two past it).  Exact, like the MXU box.
     img = make_image(rng, *shape)
     got = api.level2_impls()["box"](_t(img), radius).numpy()
     want = _jit(lambda x: box_mxu(x, radius, interpret=True), img)
@@ -185,6 +189,88 @@ def test_box_and_folded_planar_rows_prepadded(radius):
         whole[:, A:B])
 
 
+# The halo-row index map of the window kernels' staging (launch.cuh
+# stage_rows): `src` points at an image's input row `halo`, and virtual row v
+# (output row y reads v = y - r .. y + r) is staged from input row
+# halo + clamp(v, -halo, height + halo - 1).  halo = 0 is an image alone
+# (clamped at its edges); halo = r reads the given halo rows unclamped.
+
+F32 = np.float32
+
+
+def staged_row(v: np.ndarray, height: int, halo: int) -> np.ndarray:
+    return halo + np.clip(v, -halo, height + halo - 1)
+
+
+def _taps_sum(x, table: np.ndarray, radius: int, mode: str) -> np.ndarray:
+    """One pass over the taps x(0) .. x(2r) (f32), in the mode's order."""
+    if mode == "box":
+        acc = x(0)
+        for t in range(1, 2 * radius + 1):
+            acc = (acc + x(t)).astype(F32)
+        return (acc * box_inv_taps_f32(radius)).astype(F32)
+    if mode == "folded":
+        acc = None
+        for t in range(radius):
+            term = ((x(t) + x(2 * radius - t)) * table[t]).astype(F32)
+            acc = term if acc is None else (acc + term).astype(F32)
+        mid = (x(radius) * table[radius]).astype(F32)
+        return mid if acc is None else (acc + mid).astype(F32)
+    acc = (x(0) * table[0]).astype(F32)
+    for t in range(1, 2 * radius + 1):
+        acc = (acc + (x(t) * table[t]).astype(F32)).astype(F32)
+    return acc
+
+
+def _q(x: np.ndarray) -> np.ndarray:
+    return np.clip(np.floor((x + F32(0.5)).astype(F32)), 0, 255).astype(F32)
+
+
+def halo_model(planes: np.ndarray, table: np.ndarray, radius: int, mode: str,
+               halo: int) -> np.ndarray:
+    """(N, H + 2 halo, W) u8 planes -> (N, H, W): the separable blur with
+    its vertical taps read through the staging's row map."""
+    _, rows, w = planes.shape
+    h = rows - 2 * halo
+    staged = planes[:, staged_row(np.arange(-radius, h + radius), h, halo)]
+    x = staged[:, :, np.clip(np.arange(-radius, w + radius), 0, w - 1)].astype(F32)
+    horiz = _q(_taps_sum(lambda t: x[:, :, t:t + w], table, radius, mode))
+    return _q(_taps_sum(lambda t: horiz[:, t:t + h], table, radius,
+                        mode)).astype(np.uint8)
+
+
+PLAIN_K5 = {"gaussian": blur_planar.gaussian_planar_plain,
+            "folded": blur_planar.gaussian_folded_planar_plain,
+            "box": lambda p, w, r, pre=False: blur_planar.box_planar_plain(p, r, pre)}
+
+
+@pytest.mark.parametrize("mode,radius", [
+    ("gaussian", 1), ("gaussian", 3), ("gaussian", 15), ("gaussian", 31),
+    ("folded", 1), ("folded", 2), ("box", 1), ("box", 5), ("box", 31)])
+def test_halo_row_map_gives_the_whole_image_rows(rng, mode, radius):
+    h, w = 40, 37
+    planes = rng.integers(0, 256, size=(2, h, w), dtype=np.uint8)
+    table, wt = _table(radius, 8.0 if radius > 3 else 1.5)
+    plain = PLAIN_K5[mode]
+    whole = halo_model(planes, table, radius, mode, 0)
+    np.testing.assert_array_equal(
+        whole, plain(torch.from_numpy(planes), wt, radius).numpy())
+    # A band [a, b) with its neighbour rows as halo; past the image's edge
+    # they are the edge rows, as the whole image's clamp reads them.
+    for a, b in ((10, 25), (0, 12), (30, 40), (0, 40), (19, 20)):
+        band = np.ascontiguousarray(
+            planes[:, np.clip(np.arange(a - radius, b + radius), 0, h - 1)])
+        got = halo_model(band, table, radius, mode, radius)
+        np.testing.assert_array_equal(got, whole[:, a:b])
+        np.testing.assert_array_equal(
+            got, plain(torch.from_numpy(band), wt, radius, True).numpy())
+    # The kernels stage up to a chunk of 16 rows past the last output row's
+    # window: with halo rows those still lie in the input.
+    v = np.arange(-radius, h + radius + 16)
+    assert staged_row(v, h, radius).min() == 0
+    assert staged_row(v, h, radius).max() == h + 2 * radius - 1
+
+
 # -- K6 and K7: planar Sobel ------------------------------------------------
 
 
@@ -229,6 +315,42 @@ def test_sobel_planar_rows_prepadded_band_matches_jax(level):
     np.testing.assert_array_equal(got[0], ref.sobel(_t(img), level)[A:B].numpy())
 
 
+def sobel_planar_model(planes: np.ndarray, level: int, halo: int,
+                       zero_rows: bool) -> np.ndarray:
+    """(B, C, H + 2 halo, W) u8 -> (B, C, H, W): the planar Sobel tile's
+    function, its grey rows staged through the row map and 0 outside the
+    image and its halo rows (the TPU kernels' constant row pad), not
+    clamped."""
+    b, c, rows, w = planes.shape
+    h = rows - 2 * halo
+    v = np.arange(-1, h + 1)
+    g = grey_f32(np.moveaxis(planes[:, :, staged_row(v, h, halo)], 1, -1), level)
+    g[:, (v < -halo) | (v >= h + halo)] = 0
+    g = g[:, :, np.clip(np.arange(-1, w + 1), 0, w - 1)]
+    y, x = np.arange(h)[:, None], np.arange(w)[None, :]
+    inside = (x >= 1) & (x <= w - 2)
+    if zero_rows:
+        inside = inside & (y >= 1) & (y <= h - 2)
+    mag = np.stack([np.where(inside, magnitude(gi), 0) for gi in g])
+    return np.repeat(mag[:, None].astype(np.uint8), c, axis=1)
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+@pytest.mark.parametrize("level", [1, 2])
+def test_sobel_planar_staging_model_equals_plain(rng, channels, level):
+    planes = rng.integers(0, 256, size=(2, channels, 14, 19), dtype=np.uint8)
+    for halo, zero_rows in ((0, True), (0, False), (1, True), (1, False)):
+        got = sobel_planar_model(planes, level, halo, zero_rows)
+        want = sobel_planar.sobel_planar_plain(
+            torch.from_numpy(planes), level, halo == 1, zero_rows).numpy()
+        np.testing.assert_array_equal(got, want)
+    # Rows 3 .. 10 with their halo rows equal those rows of the whole image.
+    band = np.ascontiguousarray(planes[:, :, 2:12])
+    np.testing.assert_array_equal(
+        sobel_planar_model(band, level, 1, False),
+        sobel_planar_model(planes, level, 0, True)[:, :, 3:11])
+
+
 def test_sobel_planar_keeps_rows_without_halo_as_jax():
     # zero_rows=False without halo rows: the rows outside the image read
     # grey 0, as the TPU kernel's constant row pad.
@@ -265,39 +387,110 @@ def test_level2_impls_match_jax(rng, shape):
     assert_sobel_close(port["sobel"](_t(img)).numpy(), _jit(tpu["sobel"], img))
 
 
+def _record(monkeypatch, calls, *targets):
+    """Record the name and first argument of each call of `targets`, (module,
+    name) pairs, and run the function."""
+    for mod, name in targets:
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name, **k: (
+            calls.append((_n, tuple(a[0].shape))), _fn(*a, **k))[1])
+
+
+GAUSS_FNS = ((blur, "gaussian_rows"), (blur, "gaussian_folded_rows"),
+             (blur, "gaussian_band_rows"), (blur_planar, "gaussian_planar"),
+             (blur_planar, "gaussian_folded_planar"))
+
+
 @pytest.mark.parametrize("radius,sigma,want_fn", [
     (1, 1.0, "gaussian_folded_planar"), (2, 1.5, "gaussian_folded_planar"),
     (3, 2.0, "gaussian_band_rows"), (31, 8.0, "gaussian_band_rows")])
 def test_level4_gaussian_routes_on_radius(rng, monkeypatch, radius, sigma,
                                           want_fn):
-    img = make_image(rng, 9, 11, 3)
+    # want_fn: the route of an image past the rows kernels' channel cap.
+    # Within it, the weighted and folded taps run the rows kernels on the
+    # (H, W*C) view; the band (r >= 3) runs on the planes, one channel.
     _, wt = _table(radius, sigma)
     calls = []
-    for mod, name in ((blur_planar, "gaussian_folded_planar"),
-                      (blur, "gaussian_band_rows"),
-                      (blur_planar, "gaussian_planar")):
-        fn = getattr(mod, name)
-        monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name, **k: (
-            calls.append(_n), _fn(*a, **k))[1])
-    api.level4_impls()["gaussian"](_t(img), wt, radius)
-    assert calls == [want_fn]
-    calls.clear()
-    api.level2_impls()["gaussian"](_t(img), wt, radius)
-    assert calls == ["gaussian_planar"]
+    _record(monkeypatch, calls, *GAUSS_FNS)
+    for c in (3, blur.GAUSS_MAX_CHANNELS + 1):
+        img = make_image(rng, 9, 11, c)
+        planar = c > blur.GAUSS_MAX_CHANNELS
+        want_l4 = want_fn if planar or radius >= 3 else "gaussian_folded_rows"
+        got = api.level4_impls()["gaussian"](_t(img), wt, radius).numpy()
+        assert [n for n, _ in calls] == [want_l4]
+        if radius < 3:
+            np.testing.assert_array_equal(
+                got, _hwc(blur_planar.gaussian_folded_planar_plain(
+                    _planes(img), wt, radius)))
+        calls.clear()
+        got = api.level2_impls()["gaussian"](_t(img), wt, radius).numpy()
+        assert calls == [("gaussian_planar", (c, 9, 11)) if planar
+                         else ("gaussian_rows", (9, 11 * c))]
+        np.testing.assert_array_equal(
+            got, oracle.gaussian_blur(img, wt.numpy(), radius))
+        calls.clear()
 
 
 @pytest.mark.parametrize("radius,want_fn", [(1, "box_planar"), (31, "box_planar"),
                                             (32, "box_rows"), (40, "box_rows")])
 def test_box_routes_on_the_tile_cap(rng, monkeypatch, radius, want_fn):
-    img = make_image(rng, 9, 11, 3)
+    # want_fn: the route on the planes of an image past box_rows's channel
+    # cap, the planar blur's cap (2r + 1 <= MAX_KERNEL_TAPS) deciding; within the channel
+    # cap, box_rows on the (H, W*C) view at every radius.
     calls = []
-    for mod, name in ((blur_planar, "box_planar"), (blur, "box_rows")):
-        fn = getattr(mod, name)
-        monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name, **k: (
-            calls.append(_n), _fn(*a, **k))[1])
-    got = api.level2_impls()["box"](_t(img), radius).numpy()
-    assert calls == [want_fn]
-    np.testing.assert_array_equal(got, oracle.box_blur(img, radius))
+    _record(monkeypatch, calls, (blur_planar, "box_planar"), (blur, "box_rows"))
+    for c in (3, blur.BOX_MAX_CHANNELS + 1):
+        img = make_image(rng, 9, 11, c)
+        got = api.level2_impls()["box"](_t(img), radius).numpy()
+        if c > blur.BOX_MAX_CHANNELS:
+            assert calls == [(want_fn, (c, 9, 11))]
+        else:
+            assert calls == [("box_rows", (9, 11 * c))]
+        np.testing.assert_array_equal(got, oracle.box_blur(img, radius))
+        calls.clear()
+
+
+def test_tier_runs_the_rows_kernels_without_permutes(rng, monkeypatch):
+    # Every call but the level-4 band and the halo modes: the rows function
+    # on the contiguous (H, W*C) or (B, H, W*C) view, no permute.
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("the tier permuted an image")
+
+    monkeypatch.setattr(api, "to_planes", refuse)
+    monkeypatch.setattr(api, "from_planes", refuse)
+    calls = []
+    _record(monkeypatch, calls, *GAUSS_FNS, (blur, "box_rows"),
+            (blur_planar, "box_planar"), (sobel, "sobel_rows"),
+            (sobel, "sobel_f32_rows"), (sobel_planar, "sobel_planar"),
+            (sobel_planar, "sobel_f32_planar"))
+    h, w, c = 13, 17, 3
+    img = _t(make_image(rng, h, w, c))
+    imgs = _t(np.stack([make_image(rng, h, w, c) for _ in range(2)]))
+    _, w3 = _table(3, 2.0)
+    _, w2 = _table(2, 1.5)
+    l2, l4 = api.level2_impls(), api.level4_impls()
+    cases = [
+        (lambda: l2["gaussian"](img, w3, 3), "gaussian_rows"),
+        (lambda: l4["gaussian"](img, w2, 2), "gaussian_folded_rows"),
+        (lambda: l2["box"](img, 5), "box_rows"),
+        (lambda: l4["box"](img, 40), "box_rows"),
+        (lambda: l2["sobel"](img), "sobel_rows"),
+        (lambda: l4["sobel"](img), "sobel_f32_rows"),
+        (lambda: api.gaussian_planar_batch(imgs, w3, 3), "gaussian_rows"),
+        (lambda: api.gaussian_planar_batch(imgs, w2, 2, folded=True),
+         "gaussian_folded_rows"),
+        (lambda: api.box_planar_batch(imgs, 3), "box_rows"),
+        (lambda: api.sobel_planar_batch(imgs, 2), "sobel_rows"),
+        (lambda: api.sobel_planar_batch(imgs, 1), "sobel_f32_rows"),
+    ]
+    with monkeypatch.context() as m:
+        m.setattr(torch.Tensor, "permute", refuse)
+        for call, want in cases:
+            out = call()
+            batch = out.dim() == 4
+            assert calls == [(want, (2, h, w * c) if batch else (h, w * c))]
+            assert tuple(out.shape) == ((2, h, w, c) if batch else (h, w, c))
+            calls.clear()
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -415,33 +608,100 @@ def test_planar_wrappers_validate(call, match):
 
 def test_planar_cap_is_the_weight_table_cap():
     assert MAX_KERNEL_TAPS == 64
-    assert {"blur_planar", "sobel_planar"} <= set(build.SOURCES)
+    assert blur.GAUSS_MAX_RADIUS == (MAX_KERNEL_TAPS - 1) // 2
+    # The planar kernels are the rows templates: blur.cu and sobel.cu build
+    # them, and no other library does.
+    assert set(build.SOURCES) == {"blur", "sobel", "png_unfilter"}
 
 
 # -- on the card ---------------------------------------------------------------
 
 
+def _band(planes: torch.Tensor, radius: int) -> tuple[torch.Tensor, int, int]:
+    """(rows [a, b) of (..., H, W) planes with `radius` halo rows, replicated
+    past the planes' edges, a, b)."""
+    h = planes.shape[-2]
+    a, b = h // 3, max(h // 3 + 1, 2 * h // 3)
+    rows = torch.arange(a - radius, b + radius).clamp(0, h - 1).to(planes.device)
+    return planes.index_select(-2, rows).contiguous(), a, b
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES + [(2, 2, 3), (1, 7, 1), (7, 1, 3)])
+@pytest.mark.parametrize("shape", SHAPES + [(2, 2, 3), (1, 7, 1), (7, 1, 3),
+                                            (5, 13, 3), (33, 517, 1)])
 def test_planar_kernels_match_plain_on_card(rng, shape):
     if not torch.cuda.is_available():
         pytest.skip("needs an sm_90 CUDA card")
     dev = torch.device("cuda")
     img = make_image(rng, *shape)
     planes = _planes(img).to(dev)
-    for radius, sigma in [(1, 1.0), (2, 1.5), (3, 2.0), (15, 8.0), (31, 8.0)]:
+    # A batch of planes, each blurred on its own.
+    batch = torch.cat([planes, planes.flip(-1), 255 - planes]).contiguous()
+    for radius, sigma in [(1, 1.0), (2, 1.5), (3, 2.0), (5, 2.5), (15, 8.0),
+                          (20, 8.0), (31, 8.0)]:
         wt = weights_to_torch(gaussian_kernel_f32(radius, sigma), dev)
-        for kernel, plain in ((blur_planar.gaussian_planar,
-                               blur_planar.gaussian_planar_plain),
-                              (blur_planar.gaussian_folded_planar,
-                               blur_planar.gaussian_folded_planar_plain)):
-            assert torch.equal(kernel(planes, wt, radius), plain(planes, wt, radius))
-        assert torch.equal(blur_planar.box_planar(planes, radius),
-                           blur_planar.box_planar_plain(planes, radius))
+        pairs = [(blur_planar.gaussian_planar, blur_planar.gaussian_planar_plain)]
+        if radius <= 2:
+            pairs.append((blur_planar.gaussian_folded_planar,
+                          blur_planar.gaussian_folded_planar_plain))
+        if radius in (1, 5, 31):
+            pairs.append((lambda p, w, r, pre=False: blur_planar.box_planar(p, r, pre),
+                          lambda p, w, r, pre=False: blur_planar.box_planar_plain(p, r, pre)))
+        for kernel, plain in pairs:
+            for p in (planes, batch):
+                whole = kernel(p, wt.cpu(), radius)
+                assert torch.equal(whole, plain(p, wt, radius))
+                assert torch.equal(kernel(p, wt, radius), whole)   # card table
+                band, a, b = _band(p, radius)
+                got = kernel(band, wt.cpu(), radius, True)
+                assert torch.equal(got, plain(band, wt, radius, True))
+                assert torch.equal(got, whole[:, a:b])
     for level, kernel in ((2, sobel_planar.sobel_planar),
                           (1, sobel_planar.sobel_f32_planar)):
-        for zero_rows in (True, False):
-            got = kernel(planes, zero_rows=zero_rows).cpu().permute(1, 2, 0).numpy()
-            want = sobel_planar.sobel_planar_plain(
-                planes, level, zero_rows=zero_rows).cpu().permute(1, 2, 0).numpy()
-            assert_sobel_close(got, want)
+        for p in (planes, batch.view(3, *planes.shape)):
+            band, a, b = _band(p, 1)
+            for x, pre in ((p, False), (band, True)):
+                for zero_rows in (True, False):
+                    got = kernel(x, pre, zero_rows)
+                    want = sobel_planar.sobel_planar_plain(x, level, pre, zero_rows)
+                    if level == 2 and shape[-1] > 1:
+                        g = got.movedim(-3, -1).reshape(-1, *got.shape[-2:], shape[-1])
+                        wn = want.movedim(-3, -1).reshape(g.shape)
+                        assert_sobel_close(g.cpu().numpy(), wn.cpu().numpy())
+                    else:
+                        assert torch.equal(got, want)
+            if a >= 1 and b <= p.shape[-2] - 1:   # rows the whole image keeps
+                assert torch.equal(kernel(band, True, False), kernel(p)[..., a:b, :])
+
+
+@pytest.mark.cuda
+def test_tier_launches_the_rows_kernels_on_card(rng):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an sm_90 CUDA card")
+    dev = torch.device("cuda")
+    img = _t(make_image(rng, 37, 301, 3)).to(dev)
+    imgs = torch.stack([img, 255 - img])
+    _, w3 = _table(3, 2.0)
+    _, w2 = _table(2, 1.5)
+    l2, l4 = api.level2_impls(), api.level4_impls()
+    before = dict(LAUNCHES)
+    l2["gaussian"](img, w3, 3)
+    l4["gaussian"](img, w2, 2)
+    l2["box"](img, 5)
+    l2["sobel"](img)
+    l4["sobel"](img)
+    api.gaussian_planar_batch(imgs, w3, 3)
+    api.box_planar_batch(imgs, 5)
+    api.sobel_planar_batch(imgs, 2)
+    delta = {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES}
+    assert {k: n for k, n in delta.items() if n} == {
+        "gaussian_rows": 2, "gaussian_folded_rows": 1, "box_rows": 2,
+        "sobel_rows": 2, "sobel_f32_rows": 1}
+    # The halo and zero_rows=False batches and the band stay on planes.
+    before = dict(LAUNCHES)
+    api.sobel_planar_batch(imgs, 2, zero_rows=False)
+    api.sobel_planar_batch(imgs[:, :12].contiguous(), 1, rows_prepadded=True)
+    l4["gaussian"](img, w3, 3)
+    delta = {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES}
+    assert {k: n for k, n in delta.items() if n} == {
+        "sobel_planar": 1, "sobel_f32_planar": 1, "gaussian_band_rows": 1}

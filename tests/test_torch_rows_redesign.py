@@ -327,6 +327,50 @@ def magnitude(g: np.ndarray) -> np.ndarray:
     return np.floor((np.minimum(m, F32(255)) + F32(0.5)).astype(F32))
 
 
+def column_magnitude(g: np.ndarray, whole: bool) -> np.ndarray:
+    """edges.cuh SobelColumn over the 3x3 windows of a (rows + 2, cols + 2)
+    grey tile: the products by +-1 and +-2 folded into subtractions and
+    doublings, and for whole-number grey (`whole`) gx and gy from each
+    row's d = right - left and s = left + 2 middle + right."""
+    def at(dy, dx):
+        return g[dy:dy + g.shape[0] - 2, dx:dx + g.shape[1] - 2]
+
+    def f(v):
+        return v.astype(F32)
+
+    if whole:
+        d = f(g[:, 2:] - g[:, :-2])
+        s = f(f(g[:, :-2] + g[:, 2:]) + f(g[:, 1:-1] + g[:, 1:-1]))
+        gx = f(f(d[:-2] + d[2:]) + f(d[1:-1] + d[1:-1]))
+        gy = f(s[2:] - s[:-2])
+    else:
+        gx = f(at(0, 2) - at(0, 0))
+        gx = f(gx - f(F32(2) * at(1, 0)))
+        gx = f(gx + f(F32(2) * at(1, 2)))
+        gx = f(f(gx - at(2, 0)) + at(2, 2))
+        gy = f(-at(0, 0) - f(F32(2) * at(0, 1)))
+        gy = f(f(gy - at(0, 2)) + at(2, 0))
+        gy = f(f(gy + f(F32(2) * at(2, 1))) + at(2, 2))
+    m = np.sqrt(f(f(gx * gx) + f(gy * gy))).astype(F32)
+    return np.floor(f(np.minimum(m, F32(255)) + F32(0.5)))
+
+
+@pytest.mark.parametrize("level", [1, 2])
+@pytest.mark.parametrize("channels", [1, 3])
+def test_sobel_column_arithmetic_keeps_the_term_order_bits(rng, level, channels):
+    # Folding the exact products, and reusing each row's partial sums where
+    # every grey value is a whole number, give the term-order chain's bits.
+    px = rng.integers(0, 256, size=(4, 66, 130, channels), dtype=np.uint8)
+    px[0] = 0
+    px[1, ::2] = 255
+    for tile in px:
+        g = grey_f32(tile, level)
+        whole = level == 2 or channels == 1
+        np.testing.assert_array_equal(column_magnitude(g, whole), magnitude(g))
+        if whole:
+            np.testing.assert_array_equal(column_magnitude(g, False), magnitude(g))
+
+
 def sobel_tile_model(rows: np.ndarray, width: int, channels: int,
                      level: int) -> np.ndarray:
     """(..., H, W*C) uint8 -> the kernel's result, tile by tile."""
@@ -339,7 +383,8 @@ def sobel_tile_model(rows: np.ndarray, width: int, channels: int,
             for x0 in range(0, width, TILE_W):
                 ys = np.clip(np.arange(y0 - 1, y0 + TILE_H + 1), 0, h - 1)
                 xs = np.clip(np.arange(x0 - 1, x0 + TILE_W + 1), 0, width - 1)
-                mag = magnitude(grey_f32(img[ys][:, xs], level))
+                mag = column_magnitude(grey_f32(img[ys][:, xs], level),
+                                       level == 2 or channels == 1)
                 y = np.arange(y0, y0 + TILE_H)[:, None]
                 x = np.arange(x0, x0 + TILE_W)[None, :]
                 inside = (y >= 1) & (y <= h - 2) & (x >= 1) & (x <= width - 2)
