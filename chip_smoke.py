@@ -9,8 +9,10 @@ Phases, each of which fails the run on its own:
 
 1. device: CUDA present, compute capability 9.0; prints the card, its power
    limit and the toolchain;
-2. build: builds every library of the main path from the sources, one nvcc
-   per source, all started together;
+2. build: builds every library of the main path from the sources, one
+   compiler a library, all started together: nvcc for the kernels and the
+   PNG unfilter helper, the host C++ compiler for the upload decoders of
+   native/src;
 3. kernel vs plain: each of the eleven launchers against its plain torch
    version on the card, at small shapes, edge shapes and the full 2146x3239
    RGB image, gaussian at r in {1, 2, 3, 15, 31} and the rows gaussian
@@ -26,17 +28,34 @@ Phases, each of which fails the run on its own:
    with its plain version on the same batch and equal its single-image
    launches; the rows gaussian launched from three threads at once with
    three tables, each launch equal to its own plain version;
-   the PNG codec's C++ unfilter helper against its numpy version; and the
-   level-2 API on a small image against the numpy oracle;
+   the PNG codec's C++ unfilter helper against its numpy version; the
+   upload decoders on the committed fixtures (tests/data/torch_formats:
+   JPEG 4:2:0, 4:4:4 and grey, GIF, BMP, PSD, HDR, PIC, PNM, TGA and 1-,
+   4-, 16-bit and interlaced PNG) against the pixels the JAX package
+   decoded from them, exactly; and the level-2 API on a small image against
+   the numpy oracle;
 4. API path: the `gpu_filters` API and `run_all_levels` on the full image
    through FilterRuntime(cuda), with its kernels' launch counts read around
-   that run;
+   that run; then a torch.profiler trace of the model's forward, which must
+   list the rows kernel alone, and a Chrome trace of one API call
+   (`capture_trace`), which must show the gaussian kernel (both before the
+   server's profiled requests, after which traces kept only some of the
+   hand kernels' launches);
 5. server path: the REST server on 127.0.0.1 in a thread, driven with
    urllib at full size: /api/process-all and /api/process at level 4 on a
-   PNG filtered row by row as common encoders do it, /api/process-batch
-   with 4 images at levels 2 and 4, an error probe; the six rows
-   kernels' launch counts read around that run, each request's wall split
-   into decode, run and encode;
+   PNG filtered row by row as common encoders do it; the same scene as a
+   JPEG (the port's encoder, quality 90) on /api/process-all for each
+   filter and /api/process at levels 1, 2 and 4, whose original must be
+   the upload passed through, whose levels must agree with each other and
+   with the API on the decoded pixels, and which `decode_tiers` must count;
+   /api/process-all with `enable_profiling` for each filter, whose level-2
+   profile must list the hand kernels alone and whose gaussian L2 profiled
+   time must be within 15% of `time_ms`; /api/process-batch with 4 images
+   at levels 2 and 4 (one profiled), an error probe; the six rows kernels'
+   launch counts read around that run, each request's wall split into
+   decode, run, encode and profile; then the codec's split (base64,
+   inflate, unfilter, CRC, JPEG decode, the whole PNG encode and its
+   deflate) on the scene's PNG and JPEG;
 6. planar path: (a) the models (`GaussianBlur`, `BoxBlur`,
    `SobelEdgeDetection`, an `nn.Sequential` of two), the six registry
    keys and `entry()` on the full image on the card, each equal to the
@@ -50,8 +69,7 @@ Phases, each of which fails the run on its own:
    plain versions, with the planar kernels' launch counts read around
    that run (they also run in phase 3 against their plain versions, on
    batches of 4 full-size images and on row bands with halo rows); then a
-   torch.profiler trace of both paths that must list every kernel, and
-   one of the model's forward that must list the rows kernel alone;
+   torch.profiler trace of both paths that must list every kernel;
 7. times: each kernel's CUDA-event time beside its plain version's and
    its bound, the gaussian (r = 1, 15, 20, 31; folded r = 1), box and the
    band at their other radii, K5 and K7 on 4 images and in their halo
@@ -68,9 +86,11 @@ from __future__ import annotations
 
 import base64
 import json
+import shutil
 import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -93,12 +113,16 @@ from gpu_image_processing_tpu_torch.ops.cuda import (
 from gpu_image_processing_tpu_torch.ops.cuda import api as planar_api
 from gpu_image_processing_tpu_torch.ops.weights import (
     bf16_split, gaussian_kernel_f32, weights_to_torch)
+from gpu_image_processing_tpu_torch.profiling.profiler import (
+    PEAKS, capture_trace, short_kernel_name)
 from gpu_image_processing_tpu_torch.runtime.device import describe
 from gpu_image_processing_tpu_torch.runtime.dispatch import FilterRuntime
 from gpu_image_processing_tpu_torch.server.app import create_app
 from gpu_image_processing_tpu_torch.server.http import AppServer
+from gpu_image_processing_tpu_torch.utils import native_codec
 from gpu_image_processing_tpu_torch.utils.image import (
-    decode_base64_image, host_unfilter, unfilter_native, unfilter_plain)
+    decode_base64_image, decode_png, encode_png, host_unfilter, unfilter_native,
+    unfilter_plain)
 from tests import oracle_numpy as oracle
 
 FULL = (2146, 3239, 3)        # the README image (bench.py:34,50-52)
@@ -123,16 +147,18 @@ SOBEL_MAX_DIFF, SOBEL_MAX_FRACTION = 6, 1e-3
 # The server's request-body cap (server/http.py::_max_body_bytes).
 BODY_CAP = 64 * 1024 * 1024
 
-# Peaks of one H100 SXM at 700 W: device memory and dense bf16 on the tensor
-# cores as published; float32 outside the tensor cores as these kernels can
-# issue it.  The published 67e12 counts a fused multiply-add as two
-# operations (132 SMs x 128 lanes x 2 x 1.98 GHz); every kernel here builds
-# with -fmad=false and rounds each multiply and add on its own (__fmul_rn,
-# __fadd_rn), as the bit-exact contract requires, so each operation is one
-# instruction: 132 x 128 x 1.98 GHz.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 132 * 128 * 1.98e9
-BF16_TENSOR_OPS_PER_S = 989e12
+# Peaks of one H100 SXM at 700 W, from the profiler's table: device memory
+# and dense bf16 on the tensor cores as published; float32 outside the
+# tensor cores as these kernels can issue it.  The published 67e12 counts a
+# fused multiply-add as two operations (132 SMs x 128 lanes x 2 x 1.98
+# GHz); every kernel here builds with -fmad=false and rounds each multiply
+# and add on its own (__fmul_rn, __fadd_rn), as the bit-exact contract
+# requires, so each operation is one instruction: 132 x 128 x 1.98 GHz.
+HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_TENSOR_OPS_PER_S = PEAKS["NVIDIA H100 80GB HBM3"]
+# The upload fixtures (tests/data/torch_formats/generate.py) and the pixels
+# the JAX package decoded from them.
+FORMAT_FIXTURES = "tests/data/torch_formats"
+JPEG_QUALITY = 90
 
 _BLUR = "gpu_image_processing_tpu_torch/ops/cuda/blur.cu"
 _SOBEL = "gpu_image_processing_tpu_torch/ops/cuda/sobel.cu"
@@ -385,6 +411,54 @@ def client_png(img: np.ndarray) -> tuple[bytes, dict[int, int]]:
     return png, dict(zip(kinds.tolist(), counts.tolist()))
 
 
+def best_ms(fn, reps: int = 3) -> float:
+    """Least host-clock ms of `reps` calls of `fn`."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, (time.perf_counter() - t0) * 1000.0)
+    return best
+
+
+def idat(png: bytes) -> bytes:
+    """The concatenated IDAT payloads of a PNG."""
+    parts, pos = [], 8
+    while pos + 8 <= len(png):
+        length, kind = struct.unpack(">I4s", png[pos:pos + 8])
+        if kind == b"IDAT":
+            parts.append(png[pos + 8:pos + 8 + length])
+        pos += 12 + length
+    return b"".join(parts)
+
+
+def codec_split(png: bytes, jpeg: bytes, answer: np.ndarray) -> dict[str, float]:
+    """Host-clock ms (least of 3) of each step of the server's codec: the
+    two uploads' decodes (base64, then inflate and unfilter for the PNG, the
+    native decoder for the JPEG) and the PNG encode of an answer (filter
+    and CRCs, deflate at level 1, base64)."""
+    h, w, c = answer.shape
+    png_text, jpeg_text = (base64.b64encode(x) for x in (png, jpeg))
+    raw = np.frombuffer(zlib.decompress(idat(png)), np.uint8)
+    out = encode_png(answer)
+    lines = zlib.decompress(idat(out))
+    unfilter = host_unfilter()
+    steps = {
+        "PNG upload: base64 decode": best_ms(lambda: base64.b64decode(png_text)),
+        "PNG upload: inflate": best_ms(lambda: zlib.decompress(idat(png))),
+        "PNG upload: unfilter": best_ms(lambda: unfilter(raw, h, w * c, c)),
+        "PNG upload: CRC of the image data": best_ms(lambda: zlib.crc32(idat(png))),
+        "PNG upload: decode_png in all": best_ms(lambda: decode_png(png)),
+        "JPEG upload: base64 decode": best_ms(lambda: base64.b64decode(jpeg_text)),
+        "JPEG upload: native JPEG decode": best_ms(
+            lambda: native_codec.jpeg_decode(jpeg)),
+        "PNG answer: encode_png in all": best_ms(lambda: encode_png(answer)),
+        "PNG answer: deflate": best_ms(lambda: zlib.compress(lines, 1)),
+        "PNG answer: base64 encode": best_ms(lambda: base64.b64encode(out)),
+    }
+    return steps
+
+
 def gradient_image(rng: np.random.Generator, k: int) -> np.ndarray:
     """A full-size RGB gradient with low noise (2 bits a sample), which
     compresses far better than a scene, so that four fit the body cap."""
@@ -427,7 +501,7 @@ class Client:
         wall = (time.perf_counter() - t0) * 1000.0
         after = self._call("/api/stats")[1]["phase_ms"].get(f"POST {path}", {})
         split = ", ".join(f"{p} {after.get(p, 0.0) - before.get(p, 0.0):.1f}"
-                          for p in ("decode", "run", "encode"))
+                          for p in ("decode", "run", "encode", "profile"))
         print(f"[{self.card}] request {path} {label}: status {status}, body "
               f"{len(body) / 1e6:.2f} MB, wall {wall:.1f} ms (server: {split} "
               f"ms; host clock)")
@@ -463,7 +537,10 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s for "
-          f"{', '.join(build.SOURCES)} (one nvcc each, in parallel)")
+          f"{', '.join(build.LIBRARIES)} (one compiler each, in parallel: "
+          f"nvcc for the kernels and the unfilter helper, the host C++ "
+          f"compiler for the decoders); each: " + ", ".join(
+              f"{n} {t:.1f} s" for n, t in build.BUILD_SECONDS.items()))
     for name, log in build.BUILD_LOGS.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -701,6 +778,28 @@ def main() -> int:
     print("png unfilter helper == plain for filter types 0-4, bpp 1-4; the "
           "codec decodes with the helper")
 
+    # The upload decoders (JPEG and the native formats through the library
+    # of native/src, PNG through the port's codec) on the committed
+    # fixtures, against the pixels the JAX package decoded from them (its
+    # native tier for JPEG): any difference fails.
+    cxx_version = subprocess.run([build.cxx_path(), "--version"], capture_output=True,
+                                 text=True, check=True).stdout.splitlines()[0]
+    print(f"decoder library: built from {', '.join(p.name for p in build.DECODER_SOURCES)} "
+          f"by {cxx_version} in {build.BUILD_SECONDS.get(build.DECODERS, 0.0):.1f} s "
+          f"(phase 2, beside nvcc)")
+    expected = np.load(f"{FORMAT_FIXTURES}/expected.npz")
+    fixture_diffs = {}
+    for name in sorted(expected.files):
+        with open(f"{FORMAT_FIXTURES}/{name}", "rb") as f:
+            data = f.read()
+        got = decode_base64_image("data:;base64," + base64.b64encode(data).decode())
+        require(got.shape == expected[name].shape,
+                f"fixture {name}: shape {got.shape}, expected {expected[name].shape}")
+        fixture_diffs[name] = int(np.abs(got.astype(int) - expected[name]).max())
+        require(fixture_diffs[name] == 0, f"fixture {name}: maxdiff {fixture_diffs[name]}")
+    print(f"decoders vs the JAX package on {len(fixture_diffs)} fixtures: maxdiff "
+          + ", ".join(f"{n} {d}" for n, d in fixture_diffs.items()))
+
     rt = FilterRuntime(dev)
     small = rng.integers(0, 256, size=(24, 31, 3), dtype=np.uint8)
     got = api.gaussian_blur(small, MAIN_SIGMA, MAIN_GAUSS_RADIUS, 2, runtime=rt)
@@ -760,6 +859,36 @@ def main() -> int:
             f"sobel L2 vs plain L2: maxdiff {sd.max()}")
     print(f"API path checks: result dicts ok, gaussian/box L2 == L1, "
           f"sobel L2 vs plain maxdiff {sd.max()} fraction {(sd > 0).mean():.2e}")
+
+    # The model's forward launches the rows kernel alone: no permute, no
+    # copy of its table.  Traced here, before the server's profiled
+    # requests: later in the process torch.profiler's traces kept only some
+    # of the hand kernels' launches (PERF.md, open questions).  Then a
+    # Chrome trace of one API call (`capture_trace`).
+    image_t = torch.from_numpy(image).to(dev)
+    model = GaussianBlur(MAIN_SIGMA, MAIN_GAUSS_RADIUS, 2).to(dev)
+    model(image_t)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model(image_t)
+        torch.cuda.synchronize()
+    forward_kernels = sorted({e.key for e in prof.key_averages()
+                              if getattr(e, "device_time_total", 0) > 0})
+    print(f"profiler: GaussianBlur(level=2) forward -> {forward_kernels}")
+    require(forward_kernels and all("gauss_window_rows" in k for k in forward_kernels),
+            f"the forward launches more than the rows kernel: {forward_kernels}")
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        capture_trace(lambda: rt.run("gaussian", image, level=2, sigma=MAIN_SIGMA,
+                                     radius=MAIN_GAUSS_RADIUS), dev, trace_dir)
+        with open(f"{trace_dir}/trace.json") as f:
+            events = json.load(f)["traceEvents"]
+        gauss_events = [e for e in events if "gauss_window_rows" in e.get("name", "")]
+        require(gauss_events, "the Chrome trace of a served call shows no gaussian kernel")
+        print(f"capture_trace: {len(events)} events in the Chrome trace of one API "
+              f"call, {len(gauss_events)} of them the gaussian kernel")
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
 
     # -- 5. server path at full size ----------------------------------------
     # The single-image requests send a scene PNG filtered row by row as
@@ -824,6 +953,53 @@ def main() -> int:
         for f in ("gaussian", "box"):
             require(np.array_equal(served[(f, 1)], served[(f, 2)]),
                     f"process-all {f}: level_1 != level_2")
+        # The same scene as a JPEG upload, as a phone's photo arrives,
+        # written by the port's own encoder (baseline 4:4:4): /api/process-all
+        # for each filter and /api/process at levels 1, 2 and 4.
+        t0 = time.perf_counter()
+        scene_jpeg = native_codec.jpeg_encode(scene, JPEG_QUALITY)
+        jpeg_encode_ms = (time.perf_counter() - t0) * 1000.0
+        jpeg_b64 = "data:image/jpeg;base64," + base64.b64encode(scene_jpeg).decode()
+        jpeg_pixels = pixels(jpeg_b64)
+        print(f"scene JPEG upload: {len(scene_jpeg) / 1e6:.2f} MB (quality "
+              f"{JPEG_QUALITY}, 4:4:4), encoded in {jpeg_encode_ms:.1f} ms, decodes "
+              f"within {int(np.abs(jpeg_pixels.astype(int) - scene).max())} of the scene")
+        jpeg_before = client.get("/api/stats")[1]["decode_tiers"]["native_jpeg"]
+        served_jpeg = {}
+        for f in ("gaussian", "box", "sobel"):
+            status, out = client.post(
+                "/api/process-all", {"image": jpeg_b64, "filter": f, **params[f]},
+                f"{f} JPEG {w}x{h}")
+            require(status == 200 and set(out["results"]) == {"level_1", "level_2"},
+                    f"process-all JPEG {f}: {status} {str(out)[:200]}")
+            require(out["original_image"] == jpeg_b64,
+                    f"process-all JPEG {f}: the original is not the upload passed through")
+            for lv in (1, 2):
+                served_jpeg[(f, lv)] = pixels(out["results"][f"level_{lv}"]["processed_image"])
+        for lv in (1, 2, 4):
+            status, out = client.post(
+                "/api/process", {"image": jpeg_b64, "filter": "gaussian", "level": lv,
+                                 **params["gaussian"]}, f"gaussian L{lv} JPEG {w}x{h}")
+            require(status == 200, f"process JPEG gaussian L{lv}: {status} {str(out)[:200]}")
+            served_jpeg[("process gaussian", lv)] = pixels(out["processed_image"])
+        jpeg_count = client.get("/api/stats")[1]["decode_tiers"]["native_jpeg"] - jpeg_before
+        require(jpeg_count == 6, f"decode_tiers.native_jpeg counted {jpeg_count} of 6 "
+                                 f"JPEG requests")
+        # Deep profiles of the scene's process-all, each level traced with
+        # torch.profiler on the card.
+        profiled = {}
+        for f in ("gaussian", "box", "sobel"):
+            status, out = client.post(
+                "/api/process-all", {"image": scene_b64, "filter": f, **params[f],
+                                     "enable_profiling": True},
+                f"{f} profiled {w}x{h}")
+            require(status == 200 and out["profiling_available"] is True,
+                    f"profiled process-all {f}: {status} {str(out)[:200]}")
+            for lv in (1, 2):
+                m = out["results"][f"level_{lv}"]["metrics"]
+                require("profiling_error" not in m,
+                        f"profiled {f} L{lv}: {m.get('profiling_error')}")
+                profiled[(f, lv)] = m
         level4 = [("gaussian", 2, 1.5), ("gaussian", 3, MAIN_SIGMA),
                   ("gaussian", 15, 5.0), ("box", MAIN_BOX_RADIUS, None),
                   ("sobel", None, None)]
@@ -842,7 +1018,8 @@ def main() -> int:
         batches = {}
         for f in ("gaussian", "box", "sobel"):
             for lv in (2, 4):
-                payload = {"images": b64s, "filter": f, "level": lv, **params[f]}
+                payload = {"images": b64s, "filter": f, "level": lv, **params[f],
+                           "enable_profiling": (f, lv) == ("gaussian", 2)}
                 size = len(json.dumps(payload))
                 require(size < BODY_CAP, f"batch body {size} bytes over the cap")
                 status, out = client.post("/api/process-batch", payload,
@@ -850,6 +1027,16 @@ def main() -> int:
                 require(status == 200 and len(out["processed_images"]) == 4,
                         f"process-batch {f} L{lv}: {status} {str(out)[:200]}")
                 require(out["metrics"]["batch_size"] == 4, f"batch metrics {out['metrics']}")
+                if payload["enable_profiling"]:
+                    m = out["metrics"]
+                    require("profiling_error" not in m and m["kernel_duration_source"]
+                            == "torch_profiler_trace",
+                            f"profiled batch: {m.get('profiling_error')}")
+                    print(f"[{card}] profiled process-batch {f} L{lv}: time_ms "
+                          f"{m['time_ms']:.4f}, ncu_profiled_time_ms "
+                          f"{m['ncu_profiled_time_ms']:.4f}, rows " + "; ".join(
+                              f"{short_kernel_name(k)} {v:.4f} ms" for k, v in
+                              m["ncu_data"]["kernel_durations_ms"].items()))
                 print(f"[{card}] process-batch {f} L{lv}: time_ms "
                       f"{out['metrics']['time_ms']:.4f} for 4 images, "
                       f"images_per_second {out['metrics']['images_per_second']:.1f}")
@@ -878,6 +1065,58 @@ def main() -> int:
     for name, n in server_launches.items():
         require(n > 0, f"server path never launched {name}")
     print(f"server phase totals (host clock, ms): {json.dumps(stats['phase_ms'])}")
+    print(f"server decode tiers: {json.dumps(stats['decode_tiers'])}")
+
+    # The JPEG requests: levels equal, and equal to the API on the pixels
+    # the server decoded.
+    for f in ("gaussian", "box", "sobel"):
+        for lv in (1, 2):
+            require(np.array_equal(served_jpeg[(f, lv)], direct(f, lv, img=jpeg_pixels)),
+                    f"process-all JPEG {f} level_{lv} differs from the API call")
+    for f in ("gaussian", "box"):
+        require(np.array_equal(served_jpeg[(f, 1)], served_jpeg[(f, 2)]),
+                f"process-all JPEG {f}: level_1 != level_2")
+    for lv in (1, 2):
+        require(np.array_equal(served_jpeg[("process gaussian", lv)],
+                               served_jpeg[("gaussian", lv)]),
+                f"process JPEG gaussian L{lv} differs from process-all")
+    d = int(np.abs(served_jpeg[("process gaussian", 4)].astype(int)
+                   - served_jpeg[("gaussian", 2)]).max())
+    require(d <= 1, f"process JPEG gaussian L4: maxdiff {d} vs level 2")
+    print(f"JPEG requests: the original passed through, levels 1 and 2 equal and "
+          f"equal to the API on the decoded pixels, level 4 within {d} of level 2, "
+          f"decode_tiers.native_jpeg counted all 6")
+
+    # The deep profiles: level 2 traced the hand kernel alone, and its
+    # profiled time agrees with the runtime's time_ms.
+    for (f, lv), m in profiled.items():
+        deep = m["ncu_data"]
+        require(m["kernel_duration_source"] == "torch_profiler_trace",
+                f"profiled {f} L{lv}: duration source {m['kernel_duration_source']}")
+        kernel_rows = deep["kernel_durations_ms"]
+        counts = {k: v["count"] for k, v in deep["trace_kernel_stats"].items()}
+        print(f"[{card}] profile {f} L{lv}: time_ms {m['time_ms']:.4f}, "
+              f"ncu_profiled_time_ms {m['ncu_profiled_time_ms']:.4f}, DRAM "
+              f"{m.get('dram_throughput_pct', float('nan')):.1f}% of peak, peak "
+              f"device memory {m.get('peak_device_memory_bytes', 0) / 1e6:.1f} MB, "
+              f"{len(kernel_rows)} device rows, the first: " + "; ".join(
+                  f"{short_kernel_name(k)} {v:.4f} ms x{counts[k]}"
+                  for k, v in list(kernel_rows.items())[:4]))
+        if lv == 2:
+            hand = KERNELS[f"{f}_rows"]["profiler_names"]
+            require(all(any(n in k for n in hand) for k in m["kernels_profiled"]),
+                    f"profiled {f} L2 lists other kernels: {m['kernels_profiled']}")
+    g = profiled[("gaussian", 2)]
+    ratio = g["ncu_profiled_time_ms"] / g["time_ms"]
+    require(abs(ratio - 1) <= 0.15,
+            f"gaussian L2: profiled {g['ncu_profiled_time_ms']:.4f} ms against "
+            f"time_ms {g['time_ms']:.4f} ms")
+    print(f"profiles: level 2 lists the hand kernels alone; gaussian L2 profiled "
+          f"time / time_ms {ratio:.3f}")
+    # The codec's split on the scene's uploads and its PNG answer.
+    split = codec_split(scene_png, scene_jpeg, served[("gaussian", 2)])
+    print(f"[{card}] codec split at {w}x{h} (host clock, ms, least of 3): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
 
     # The served pixels against direct calls and the level-2 / plain results.
     for (f, lv), got in served.items():
@@ -908,7 +1147,6 @@ def main() -> int:
     # keys level 4.  The tier runs the rows kernels on the (H, W*C) view of
     # each image, so no planar kernel launches here; only the level-4 band
     # runs on planes.
-    image_t = torch.from_numpy(image).to(dev)
     rgba = rng.integers(0, 256, size=(h, w, 4), dtype=np.uint8)
     registry: dict = {}
     fused.register_all(registry.__setitem__)
@@ -1096,20 +1334,6 @@ def main() -> int:
             hits = [k for k in device_kernels if sub in k]
             require(hits, f"profiler lists no device kernel named {sub}")
             print(f"profiler: {name} -> {hits[0]}")
-    # The model's forward launches the rows kernel alone: no permute, no
-    # copy of its table.
-    model = GaussianBlur(MAIN_SIGMA, MAIN_GAUSS_RADIUS, 2).to(dev)
-    model(image_t)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model(image_t)
-        torch.cuda.synchronize()
-    forward_kernels = sorted({e.key for e in prof.key_averages()
-                              if getattr(e, "device_time_total", 0) > 0})
-    print(f"profiler: GaussianBlur(level=2) forward -> {forward_kernels}")
-    require(forward_kernels and all("gauss_window_rows" in k for k in forward_kernels),
-            f"the forward launches more than the rows kernel: {forward_kernels}")
-
     # -- 7. times -------------------------------------------------------------
     # Request time: the host clock around a whole API call, copies to and
     # from the card included (the call returns a numpy image, so it has

@@ -12,8 +12,15 @@ unchanged one loads at once.
 The launch functions take `tensor.data_ptr()`, sizes and PyTorch's current
 stream as plain integers, launch on that stream without synchronising, and
 return `cudaGetLastError()`; `check` turns a non-zero code into an error.
-A build failure raises with nvcc's stderr.  Nothing here falls back to
-another path.
+The image decoders of the upload codec (utils/native_codec.py) are host
+code too: `native/src/gip_jpeg.cpp` and `native/src/gip_formats.cpp`, which
+need only standard headers, are compiled where they stand into one library,
+`DECODERS`, with the host C++ compiler (`CXX_FLAGS`), not nvcc, so that it
+builds on any host with a C++ compiler, the card's or not.  It lands in
+`_build/` beside the kernels, keyed the same way.
+
+A build failure raises with the compiler's stderr.  Nothing here falls back
+to another path.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -32,8 +40,15 @@ import torch
 
 SOURCE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SOURCE_DIR / "_build"
-#: Every library the port builds: the kernels, then the host PNG helper.
+#: The library of the upload decoders, and its sources in the repository's
+#: `native/src` (the JAX package's C++ codec tier, compiled as it stands).
+DECODERS = "gip_decoders"
+NATIVE_DIR = SOURCE_DIR.parents[2] / "native" / "src"
+DECODER_SOURCES = (NATIVE_DIR / "gip_jpeg.cpp", NATIVE_DIR / "gip_formats.cpp")
+#: The libraries built by nvcc: the kernels, then the host PNG helper.
 SOURCES = ("blur", "sobel", "png_unfilter")
+#: Every library the port builds.
+LIBRARIES = (*SOURCES, DECODERS)
 
 #: Hopper only; `-fmad=false` keeps every multiply and add rounded apart
 #: (the kernels also use `_rn` intrinsics).  Never `--use_fast_math`.
@@ -43,10 +58,16 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+#: The decoders: plain C++17, no CUDA.  `--no-undefined` makes a missing
+#: symbol a build error, not a failure at load time.
+CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-Wl,--no-undefined")
+
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
-#: nvcc's output (ptxas register and spill report) per built library.
+#: The compiler's output (ptxas register and spill report) per built library.
 BUILD_LOGS: dict[str, str] = {}
+#: Seconds each library took to build in this process.
+BUILD_SECONDS: dict[str, float] = {}
 
 
 def require_hopper(device: torch.device) -> None:
@@ -76,32 +97,55 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
 
 
+def cxx_path() -> str:
+    """The host C++ compiler on PATH (`c++`, else `g++`); raises if neither."""
+    for name in ("c++", "g++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler (c++ or g++) on PATH")
+
+
 def _source(name: str) -> Path:
     """`<name>.cu`, else the host source `<name>.cpp`."""
     cu = SOURCE_DIR / f"{name}.cu"
     return cu if cu.exists() else SOURCE_DIR / f"{name}.cpp"
 
 
+def _inputs(name: str) -> tuple[tuple[str, ...], list[Path]]:
+    """(flags, every file the library is built from) of library `name`."""
+    if name == DECODERS:
+        return CXX_FLAGS, [*DECODER_SOURCES, NATIVE_DIR / "gip_limits.h"]
+    return NVCC_FLAGS, [_source(name), *sorted(SOURCE_DIR.glob("*.cuh"))]
+
+
 def _source_hash(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [_source(name), *sorted(SOURCE_DIR.glob("*.cuh"))]:
+    flags, paths = _inputs(name)
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in paths:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _command(name: str, target: str) -> list[str]:
+    if name == DECODERS:
+        return [cxx_path(), *CXX_FLAGS, "-o", target,
+                *map(str, DECODER_SOURCES)]
+    return [nvcc_path(), *NVCC_FLAGS, "-o", target, str(_source(name))]
 
 
 def _compile(name: str, target: Path) -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    source = _source(name)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(source)]
+    cmd = _command(name, tmp)
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed to build {source.name} (exit {proc.returncode}):"
-                f"\n{proc.stderr}")
+                f"{Path(cmd[0]).name} failed to build {name} (exit "
+                f"{proc.returncode}):\n{proc.stderr}")
         # Atomic: a concurrent process sees the old name or the whole file.
         os.replace(tmp, target)
     finally:
@@ -114,21 +158,24 @@ def _built(name: str) -> Path:
     """The library of `<name>`, compiled now unless it already exists."""
     target = BUILD_DIR / f"{name}-{_source_hash(name)}.so"
     if not target.exists():
+        t0 = time.perf_counter()
         BUILD_LOGS[name] = _compile(name, target)
+        BUILD_SECONDS[name] = time.perf_counter() - t0
     return target
 
 
-def build_all(names: tuple[str, ...] = SOURCES) -> None:
-    """Compile every library that is not built yet, one nvcc per source,
-    all started together; raises with the first failure's stderr."""
+def build_all(names: tuple[str, ...] = LIBRARIES) -> None:
+    """Compile every library that is not built yet, one compiler per
+    library, all started together; raises with the first failure's
+    stderr."""
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         for _ in pool.map(_built, names):
             pass
 
 
 def load_host(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
-    """The library built from `<name>.cpp` (or `.cu`), built first if
-    needed; raises with nvcc's stderr if the build fails.
+    """Library `name` (`<name>.cpp` or `.cu`, or `DECODERS`), built first
+    if needed; raises with the compiler's stderr if the build fails.
 
     `signatures` maps each function to its ctypes argument types; every one
     returns an int.

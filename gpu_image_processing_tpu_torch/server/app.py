@@ -9,20 +9,32 @@ test_client.py) work against this server unchanged:
     GET  /docs               endpoint summary
     GET  /api/health         {"status", "gpu_available"}
     GET  /api/filters        filter catalog with parameter ranges
-    GET  /api/stats          request counters, kernel launches, phase times
+    GET  /api/stats          request counters, kernel launches, phase times,
+                             decode tiers
     POST /api/process        one filter, one level (1, 2 or 4)
-    POST /api/process-all    level_1 + level_2 comparison
+    POST /api/process-all    level_1 + level_2 comparison (+ optional profiling)
     POST /api/process-batch  many same-size images in one launch per kernel
-    POST /api/upload         multipart PNG -> base64
+                             (+ optional profiling)
+    POST /api/upload         multipart image file -> base64 PNG
+
+Uploads may be PNG (every bit depth, interlaced or not), JPEG, GIF, BMP,
+PSD, HDR, PIC, PNM or TGA (utils/image.py); bytes none of those decoders
+reads answer 400.
 
 Degradation contract (app.py:50-68): if the runtime cannot start on its
 device, the process endpoints answer 503 and the health check reports it,
 but the server still serves.  A level that fails inside process-all is
-logged and left out, so the other level can succeed.  Profiling is not
-ported: `profiling_available` is always false.
+logged and left out, so the other level can succeed.
 
-Every request to a process endpoint adds its host-clock time in three
-phases (decode, run, encode) to `/api/stats` under `phase_ms`.
+Deep profiling (`enable_profiling` on /api/process-all and
+/api/process-batch, profiling/profiler.py) merges as the JAX server merges
+it (app.py:309-390, 483-513): the profiled time goes under
+`ncu_profiled_time_ms`, never over the runtime's `time_ms`, the flattened
+keys beside it and the whole profile under `ncu_data`; a profiling failure
+sets `profiling_error` and leaves the request's result standing.
+
+Every request to a process endpoint adds its host-clock time in four
+phases (decode, run, encode, profile) to `/api/stats` under `phase_ms`.
 
 Run it with ``python -m gpu_image_processing_tpu_torch.server.app --device
 cuda`` (the default), or ``--device cpu`` to ask for the CPU.
@@ -42,12 +54,20 @@ import numpy as np
 from ..core import config
 from ..core.params import FILTERS, ValidationError, filters_catalog
 from ..ops.cuda import LAUNCHES, build
+from ..profiling.profiler import (
+    check_profiler_available,
+    get_common_metrics,
+    profile_batch,
+    profile_filter,
+)
 from ..runtime.dispatch import FilterRuntime
+from ..utils import native_codec
 from ..utils.image import (
     ImageCodecError,
     decode_base64_image,
     decode_base64_image_ex,
     decode_png,
+    decode_tier_counts,
     encode_image_to_base64,
     encode_png,
     load_image_file,
@@ -58,7 +78,7 @@ from .schemas import AllLevelsResponse, FilterRequest, FilterResponse, SchemaErr
 logger = logging.getLogger("gip_torch.server")
 
 API_VERSION = "1.0.0"
-PHASES = ("decode", "run", "encode")
+PHASES = ("decode", "run", "encode", "profile")
 
 
 def start_runtime(device: str) -> tuple[FilterRuntime | None, str | None]:
@@ -71,11 +91,12 @@ def start_runtime(device: str) -> tuple[FilterRuntime | None, str | None]:
 
 def warm_kernels(runtime: FilterRuntime) -> None:
     """Build every library and launch every kernel once on a tiny image,
-    so the first request does not pay the nvcc build."""
+    so the first request does not pay a build."""
     if runtime.device.type == "cuda":
         build.build_all()
     img = np.zeros((8, 8, 3), np.uint8)
     decode_png(encode_png(img))
+    native_codec.jpeg_decode(native_codec.jpeg_encode(img))
     for filter_name in FILTERS:
         for level in config.REQUEST_LEVELS:
             runtime.run(filter_name, img, level=level, radius=2)
@@ -142,6 +163,17 @@ def _filter_kwargs(req: FilterRequest, level: int) -> dict[str, Any]:
     elif req.filter == "box":
         kwargs.update(radius=req.radius)
     return kwargs
+
+
+def _merge_profile(metrics: dict[str, Any], deep: dict[str, Any]) -> None:
+    """The JAX server's merge (app.py:339-360): the profiled time under
+    `ncu_profiled_time_ms`, never over the runtime's `time_ms`; the other
+    flattened keys beside it; the whole profile under `ncu_data`."""
+    common = get_common_metrics(deep, ncu_data=deep)
+    if common.get("time_ms", 0) > 0:
+        metrics["ncu_profiled_time_ms"] = common["time_ms"]
+    metrics.update((k, v) for k, v in common.items() if k != "time_ms")
+    metrics["ncu_data"] = deep
 
 
 def _parse_filter_request(body: Any) -> FilterRequest:
@@ -214,6 +246,7 @@ def create_app(runtime: FilterRuntime | None = None,
             "gpu_available": available,
             "kernel_launches": dict(LAUNCHES),
             "phase_ms": phase_ms,
+            "decode_tiers": decode_tier_counts(),
         }
 
     @app.get("/")
@@ -249,12 +282,14 @@ def create_app(runtime: FilterRuntime | None = None,
                 },
                 "GET /api/stats": {
                     "description": "Request counters, kernel launches, "
-                                   "decode/run/encode times"
+                                   "decode/run/encode/profile times, "
+                                   "decode tiers"
                 },
                 "POST /api/process": {
                     "description": "Filter one image at one level",
                     "body": {
-                        "image": "base64 or data-URL PNG",
+                        "image": "base64 or data-URL image: PNG, JPEG, GIF, "
+                                 "BMP, PSD, HDR, PIC, PNM or TGA",
                         "filter": "gaussian | box | sobel",
                         "level": "1 (naive) | 2 (optimized) | 4 (advanced)",
                         "sigma": "float, gaussian only, [0.5, 20]",
@@ -265,7 +300,7 @@ def create_app(runtime: FilterRuntime | None = None,
                 },
                 "POST /api/process-all": {
                     "description": "Filter at levels 1 and 2 for comparison",
-                    "body": "same as /api/process",
+                    "body": "same as /api/process, plus enable_profiling",
                     "returns": "{original_image, results{level_1,level_2},"
                                " image_info, profiling_available}",
                 },
@@ -273,10 +308,12 @@ def create_app(runtime: FilterRuntime | None = None,
                     "description": "Filter a batch of same-size images, one "
                                    "launch per kernel",
                     "body": "{images: [b64,...], filter, level, sigma, "
-                            "radius}",
+                            "radius, enable_profiling}",
                 },
                 "POST /api/upload": {
-                    "description": "multipart/form-data PNG file -> base64"
+                    "description": "multipart/form-data image file (PNG, "
+                                   "JPEG, GIF, BMP, PSD, HDR, PIC, PNM or "
+                                   "TGA) -> base64 PNG"
                 },
             },
         }
@@ -335,18 +372,31 @@ def create_app(runtime: FilterRuntime | None = None,
             except ImageCodecError as exc:
                 raise HTTPError(400, str(exc)) from None
         height, width, channels = img.shape
-        # A rendering-neutral RGB PNG upload passes through as the original
-        # instead of paying a full PNG encode.
+        # A rendering-neutral RGB PNG or baseline JPEG upload passes through
+        # as the original instead of paying a full PNG encode.
         with timer("encode"):
             original = passthrough or encode_image_to_base64(img)
+        profiling = (req.enable_profiling
+                     and check_profiler_available(rt.device))
 
         results: dict[str, FilterResponse] = {}
         prev_out, prev_encoded = None, None
         for level in config.VALID_LEVELS:
             try:
                 with timer("run"):
-                    out, metrics = rt.run(req.filter, img,
-                                          **_filter_kwargs(req, level))
+                    out, run_metrics = rt.run(req.filter, img,
+                                              **_filter_kwargs(req, level))
+                metrics = run_metrics.as_dict()
+                if profiling:
+                    with timer("profile"):
+                        try:
+                            _merge_profile(metrics, profile_filter(
+                                rt, img, req.filter, level,
+                                **_parameters(req)))
+                        except Exception as exc:
+                            logger.exception("Profiling failed for level %s",
+                                             level)
+                            metrics["profiling_error"] = str(exc)
                 with timer("encode"):
                     # Gaussian and box levels are bit-identical: reuse the
                     # previous level's PNG when the pixels match.
@@ -357,7 +407,7 @@ def create_app(runtime: FilterRuntime | None = None,
                         prev_out, prev_encoded = out, encoded
                 results[f"level_{level}"] = FilterResponse(
                     processed_image=encoded,
-                    metrics=metrics.as_dict(),
+                    metrics=metrics,
                     info=_info_dict(req, level, height, width, channels,
                                     include_level_number=True),
                 )
@@ -376,7 +426,7 @@ def create_app(runtime: FilterRuntime | None = None,
                 "filter": req.filter,
                 "parameters": _parameters(req),
             },
-            profiling_available=False,
+            profiling_available=profiling,
         ).as_dict()
 
     @app.post("/api/process-batch")
@@ -413,13 +463,23 @@ def create_app(runtime: FilterRuntime | None = None,
             raise HTTPError(400, str(exc)) from None
         except Exception as exc:
             raise HTTPError(500, f"Processing failed: {exc}") from None
+        merged = {**metrics.as_dict(), "batch_size": int(batch.shape[0]),
+                  "images_per_second": metrics.fps}
+        if req.enable_profiling:
+            with timer("profile"):
+                try:
+                    _merge_profile(merged, profile_batch(
+                        rt, batch, req.filter, req.level,
+                        **_parameters(req)))
+                except Exception as exc:
+                    logger.exception("Batch profiling failed")
+                    merged["profiling_error"] = str(exc)
         with timer("encode"):
             images = [encode_image_to_base64(img) for img in out]
         record_phases("POST /api/process-batch", timer)
         return 200, {
             "processed_images": images,
-            "metrics": {**metrics.as_dict(), "batch_size": int(batch.shape[0]),
-                        "images_per_second": metrics.fps},
+            "metrics": merged,
             "info": _info_dict(req, req.level, height, width, channels),
         }
 

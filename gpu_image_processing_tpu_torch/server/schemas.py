@@ -76,7 +76,7 @@ class FilterRequest:
     level: int = 1                  # 1=naive, 2=optimized, 4=advanced
     sigma: float | None = config.DEFAULT_SIGMA
     radius: int | None = config.DEFAULT_RADIUS
-    enable_profiling: bool = False  # accepted; profiling is not ported
+    enable_profiling: bool = False  # deep profile of each level (or the batch)
 
     @classmethod
     def from_json(cls, body: Any) -> "FilterRequest":

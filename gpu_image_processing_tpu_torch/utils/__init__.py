@@ -1,1 +1,1 @@
-"""Host-side helpers: the PNG image codec."""
+"""Host-side helpers: the upload codec and the binding of its native decoders."""

@@ -112,8 +112,8 @@ def test_decode_matches_jax_codec(rng, filt, colour, shape):
 @pytest.mark.parametrize("depth", [1, 2, 4, 8])
 @pytest.mark.parametrize("trns", [False, True])
 def test_palette_decode_matches_jax_codec(rng, filt, depth, trns):
-    """8-bit palette PNGs decode as the JAX codec decodes them; 1-, 2- and
-    4-bit ones are refused with a message naming 8-bit PNG."""
+    """Palette PNGs of every depth decode as the JAX codec decodes them:
+    through PLTE, tRNS dropped."""
     h, w = 7, 11
     n = 1 << depth
     palette = rng.integers(0, 256, size=(n, 3), dtype=np.uint8)
@@ -122,10 +122,6 @@ def test_palette_decode_matches_jax_codec(rng, filt, depth, trns):
     if trns:
         extra.append((b"tRNS", bytes(range(0, 256, max(1, 256 // n)))[:n]))
     png = make_png(_pack(idx, depth), w, 3, depth=depth, filt=filt, extra=extra)
-    if depth < 8:
-        with pytest.raises(codec.ImageCodecError, match="8-bit PNG"):
-            codec.decode_base64_image(_b64(png))
-        return
     got, want = _both_decode(png)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, palette[idx])
@@ -133,14 +129,15 @@ def test_palette_decode_matches_jax_codec(rng, filt, depth, trns):
 
 @pytest.mark.parametrize("depth", [1, 2, 4])
 def test_low_bit_grey_matches_jax_codec(rng, depth):
-    """1-, 2- and 4-bit grey PNGs, which the JAX codec decodes, are refused
-    with a message naming 8-bit PNG (and 400 at the server)."""
+    """1-, 2- and 4-bit grey PNGs decode as the JAX codec decodes them,
+    scaled to 0-255."""
     h, w = 5, 13
     values = rng.integers(0, 1 << depth, size=(h, w))
     png = make_png(_pack(values, depth), w, 0, depth=depth, filt="mixed")
-    assert jax_codec.decode_base64_image(_b64(png)).shape == (h, w, 3)
-    with pytest.raises(codec.ImageCodecError, match="8-bit PNG"):
-        codec.decode_png(png)
+    got, want = _both_decode(png)
+    assert got.shape == (h, w, 3)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[..., 0], values * (255 // ((1 << depth) - 1)))
 
 
 def test_grey_trns_is_ignored_as_jax_does(rng):
@@ -173,30 +170,26 @@ def test_base64_without_data_url_prefix(rng):
         codec.decode_base64_image(_b64(png, prefix=False)), arr)
 
 
-def _jpeg(rng):
-    buf = io.BytesIO()
-    Image.fromarray(rng.integers(0, 256, size=(8, 8, 3), dtype=np.uint8)).save(
-        buf, format="JPEG")
-    return buf.getvalue()
-
-
-def _png16():
-    buf = io.BytesIO()
-    Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 1000).save(
-        buf, format="PNG")
-    return buf.getvalue()
+def _png_depth(depth):
+    """An RGB PNG whose header declares `depth` bits a sample."""
+    png = bytearray(make_png(np.zeros((2, 6), np.uint8), 2, 2))
+    png[24] = depth
+    png[29:33] = struct.pack(">I", zlib.crc32(bytes(png[12:29])))
+    return bytes(png)
 
 
 @pytest.mark.parametrize("payload,match", [
-    (lambda rng: _b64(_jpeg(rng)), "PNG"),
-    (lambda rng: _b64(_png16()), "8-bit PNG"),
-    (lambda rng: _b64(make_png(np.zeros((2, 6), np.uint8), 2, 2,
-                               interlace=1)), "interlaced"),
+    (lambda rng: _b64(make_png(np.zeros((3, 9), np.uint8), 3, 2)[:45]),
+     "truncated"),
+    (lambda rng: _b64(_png_depth(4)), "bit depth 4 and colour type 2"),
     (lambda rng: "not base64 at all!", "Failed to decode image"),
     (lambda rng: "", "empty"),
-    (lambda rng: _b64(b"GIF89a" + bytes(20)), "PNG"),
+    (lambda rng: _b64(b"\x89PNG\r\n\x1a\n" + bytes(4)), "PNG without IEND"),
+    (lambda rng: _b64(b"plain text, not an image at all"),
+     "unrecognised image format"),
 ])
 def test_refusals_name_png(rng, payload, match):
+    """Undecodable uploads are refused with a message naming what failed."""
     with pytest.raises(codec.ImageCodecError, match=match):
         codec.decode_base64_image(payload(rng))
 

@@ -11,6 +11,7 @@ import base64
 import io
 import json
 import urllib.request
+import zlib
 
 import numpy as np
 import pytest
@@ -27,7 +28,10 @@ from gpu_image_processing_tpu_torch.server.app import (
     warm_kernels,
 )
 from gpu_image_processing_tpu_torch.server.http import AppServer, Request
-from gpu_image_processing_tpu_torch.utils.image import decode_base64_image
+from gpu_image_processing_tpu_torch.utils.image import (
+    decode_base64_image,
+    encode_png,
+)
 
 from .sobel_tolerance import assert_sobel_close
 
@@ -202,26 +206,143 @@ def test_upload_matches_jax(apps, arr):
 
 
 def test_upload_refuses_jpeg_naming_png(apps):
-    buf = io.BytesIO()
-    Image.fromarray(_image()).save(buf, format="JPEG")
+    """A JPEG is served on /api/upload and /api/process as the JAX server
+    serves it (within 3: the JAX package decodes with Pillow here, the port
+    with the native decoder); a cut JPEG answers 400."""
+    data = _jpeg(_image(shape=(24, 32, 3)))
+    (status, body), (want_status, want) = _both(
+        apps, "POST", "/api/upload", files={"file": ("x.jpg", data)})
+    assert status == want_status == 200
+    assert {k: v for k, v in body.items() if k != "base64_image"} == \
+        {k: v for k, v in want.items() if k != "base64_image"}
+    diff = _pixels(body["base64_image"]).astype(int) - _pixels(want["base64_image"])
+    assert np.abs(diff).max() <= 3
+    url = "data:image/jpeg;base64," + base64.b64encode(data).decode()
     status, body = apps[0].dispatch(Request(
-        method="POST", path="/api/upload", files={"file": ("x.jpg", buf.getvalue())}))
-    assert status == 400 and "PNG" in body["detail"]
+        method="POST", path="/api/process", json={"image": url, "filter": "box"}))
+    assert status == 200
     status, body = apps[0].dispatch(Request(
-        method="POST", path="/api/process",
-        json={"image": "data:image/jpeg;base64,"
-                       + base64.b64encode(buf.getvalue()).decode(),
-              "filter": "box"}))
-    assert status == 400 and "PNG" in body["detail"]
+        method="POST", path="/api/upload",
+        files={"file": ("x.jpg", data[:len(data) // 2])}))
+    assert status == 400 and "Failed to decode image" in body["detail"]
 
 
 def test_process_refuses_one_bit_png_naming_8_bit(apps):
+    """A 1-bit PNG is served as the JAX server serves it; a PNG of a depth
+    its colour type does not allow answers 400 naming both."""
     buf = io.BytesIO()
     Image.fromarray(_image()[..., 0] > 127).save(buf, format="PNG")   # mode "1"
+    payload = {"image": base64.b64encode(buf.getvalue()).decode(), "filter": "box"}
+    (status, body), (want_status, want) = _both(apps, "POST", "/api/process", payload)
+    assert status == want_status == 200
+    _assert_pixels_close("box", 1, body["processed_image"], want["processed_image"])
+    png = bytearray(buf.getvalue())
+    png[24] = 3   # bit depth 3
+    png[29:33] = zlib.crc32(bytes(png[12:29])).to_bytes(4, "big")
     status, body = apps[0].dispatch(Request(
         method="POST", path="/api/process",
-        json={"image": base64.b64encode(buf.getvalue()).decode(), "filter": "box"}))
-    assert status == 400 and "8-bit PNG" in body["detail"]
+        json={"image": base64.b64encode(bytes(png)).decode(), "filter": "box"}))
+    assert status == 400 and "bit depth 3" in body["detail"]
+
+
+def _jpeg(arr):
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def test_process_all_serves_a_jpeg_with_its_passthrough():
+    app = create_app(FilterRuntime("cpu"))
+    img = _image(9, (20, 28, 3))
+    data = _jpeg(img)
+    url = "data:image/jpeg;base64," + base64.b64encode(data).decode()
+    decoded = decode_base64_image(url)
+    before = app.dispatch(Request(method="GET", path="/api/stats"))[1]["decode_tiers"]
+    status, body = app.dispatch(Request(method="POST", path="/api/process-all",
+                                        json={"image": url, "filter": "gaussian"}))
+    assert status == 200
+    assert body["original_image"] == url          # the upload, unchanged
+    after = app.dispatch(Request(method="GET", path="/api/stats"))[1]["decode_tiers"]
+    assert after["native_jpeg"] == before["native_jpeg"] + 1
+    for name in ("level_1", "level_2"):
+        got = _pixels(body["results"][name]["processed_image"])
+        want = app.dispatch(Request(method="POST", path="/api/process", json={
+            "image": base64.b64encode(encode_png(decoded)).decode(),
+            "filter": "gaussian", "level": int(name[-1])}))[1]
+        np.testing.assert_array_equal(got, _pixels(want["processed_image"]))
+
+
+#: Keys the JAX server adds on the CPU only because its tests turn on
+#: placeholder peaks there (tests/conftest.py, GIP_TPU_TEST_PEAKS): the port
+#: has no peak table and no device memory to read on the CPU.
+NO_CPU_PEAKS = {"compute_throughput_pct", "dram_throughput_pct", "occupancy_pct",
+                "peak_device_memory_bytes"}
+
+
+def _profiled_keys(metrics):
+    assert "profiling_error" not in metrics, metrics.get("profiling_error")
+    deep = metrics["ncu_data"]
+    for section in ("execution", "memory", "occupancy", "config"):
+        assert section in deep
+    assert metrics["ncu_profiled_time_ms"] == deep["total_kernel_duration_ms"] > 0
+    assert metrics["kernel_duration_source"] == deep["duration_source"] == "wall_timing"
+    assert metrics["total_kernels"] == len(deep["kernels_profiled"]) >= 1
+    return deep
+
+
+@pytest.mark.parametrize("filt", ["gaussian", "box", "sobel"])
+def test_process_all_with_profiling(apps, filt):
+    payload = {"image": _png_b64(_image(4, (14, 17, 3))), "filter": filt,
+               "radius": 3, "enable_profiling": True}
+    (status, body), (want_status, want) = _both(apps, "POST", "/api/process-all",
+                                                payload)
+    assert status == want_status == 200
+    assert body["profiling_available"] is want["profiling_available"] is True
+    for name, res in body["results"].items():
+        metrics = res["metrics"]
+        # The runtime's time stays primary: the profile never replaces it.
+        plain = apps[0].dispatch(Request(method="POST", path="/api/process", json={
+            **payload, "level": int(name[-1])}))[1]["metrics"]
+        assert set(plain) < set(metrics)
+        _profiled_keys(metrics)
+        assert set(metrics) >= set(want["results"][name]["metrics"]) - NO_CPU_PEAKS
+        _assert_pixels_close(filt, 1, res["processed_image"],
+                             want["results"][name]["processed_image"])
+
+
+@pytest.mark.parametrize("filt,level", [("gaussian", 2), ("box", 4), ("sobel", 2)])
+def test_process_batch_with_profiling(apps, filt, level):
+    images = [_png_b64(_image(seed, (12, 15, 3))) for seed in range(2)]
+    payload = {"images": images, "filter": filt, "level": level, "radius": 2,
+               "enable_profiling": True}
+    (status, body), (want_status, want) = _both(apps, "POST", "/api/process-batch",
+                                                payload)
+    assert status == want_status == 200
+    deep = _profiled_keys(body["metrics"])
+    assert deep["config"]["Batch Size"] == 2
+    assert deep["config"]["Image Shape"] == "2x12x15x3"
+    assert body["metrics"]["batch_size"] == 2
+    assert set(body["metrics"]) >= set(want["metrics"]) - NO_CPU_PEAKS
+
+
+def test_a_profiling_failure_keeps_the_result(monkeypatch):
+    from gpu_image_processing_tpu_torch.server import app as app_module
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("no trace")
+
+    monkeypatch.setattr(app_module, "profile_filter", broken)
+    monkeypatch.setattr(app_module, "profile_batch", broken)
+    app = create_app(FilterRuntime("cpu"))
+    status, body = app.dispatch(Request(method="POST", path="/api/process-all", json={
+        "image": GOOD, "filter": "box", "enable_profiling": True}))
+    assert status == 200
+    for res in body["results"].values():
+        assert res["metrics"]["profiling_error"] == "no trace"
+        assert res["metrics"]["time_ms"] > 0 and "ncu_data" not in res["metrics"]
+    status, body = app.dispatch(Request(method="POST", path="/api/process-batch", json={
+        "images": [GOOD], "filter": "box", "enable_profiling": True}))
+    assert status == 200 and body["metrics"]["profiling_error"] == "no trace"
 
 
 @pytest.mark.parametrize("path", ["/", "/api/health", "/api/filters", "/docs"])
@@ -249,6 +370,8 @@ def test_stats_counts_requests_launches_and_phases():
     phases = stats["phase_ms"]["POST /api/process"]
     assert phases["requests"] == 1
     assert all(phases[p] > 0 for p in ("decode", "run", "encode"))
+    assert phases["profile"] == 0
+    assert stats["decode_tiers"]["zlib_png"] >= 1
 
 
 def test_without_a_card_the_process_endpoints_answer_503():
