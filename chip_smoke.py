@@ -75,7 +75,21 @@ Phases, each of which fails the run on its own:
    band at their other radii, K5 and K7 on 4 images and in their halo
    modes, the API's `time_ms` beside its kernel's event time (level 1
    beside the plain version's), and the models' forward wall and events.
-   The old kernels against the new: `tools/kernel_times.py --ref`.
+   The old kernels against the new: `tools/kernel_times.py --ref`;
+8. multi-device path: 4 shards on the one card (a mesh may name one device
+   several times), meshes (dp, sp) = (2, 2) and (1, 4): `make_sharded_filter`
+   for gaussian r = 3, box r = 5 and Sobel L2 and L1 on 1, 4 and 3 full-size
+   images (3 leaves H = 2146 uneven over sp = 4), each equal to the
+   single-device API and to the plain bodies bit for bit, K5 and K6 one
+   launch a shard in their halo modes (counts read around it); row-sharded
+   serving (`GIP_TPU_MESH_SPATIAL=1`) through
+   `FilterRuntime(cuda, mesh_devices=[cuda:0] * 4)`, gaussian L1/L2/L4, box,
+   Sobel L1/L2/L4 against single-device serving (gaussian L4 equals L2), and
+   the mesh batch (`GIP_TPU_MESH_BATCH=1`) of 4 images at L2 and L4 against
+   the one-device batch, each path's launch counts read around it, a
+   profiled request on each (`Serving Path` `spatial(sp=4)`, `batch(dp=4)`,
+   the gaussian kernel's name and a time), the switches restored after; sharded `time_ms` and step events beside the
+   single-device ones, with the halo bytes; `dryrun_multichip(4)`.
 
 The line before the last is a JSON object `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`.  Any failure exits non-zero and prints no ok
@@ -86,6 +100,7 @@ from __future__ import annotations
 
 import base64
 import json
+import os
 import shutil
 import struct
 import subprocess
@@ -104,7 +119,8 @@ from torch.profiler import ProfilerActivity, profile
 from torch import nn
 
 from gpu_image_processing_tpu_torch.api import filters as api
-from gpu_image_processing_tpu_torch.entry import entry
+from gpu_image_processing_tpu_torch.core import config
+from gpu_image_processing_tpu_torch.entry import dryrun_multichip, entry
 from gpu_image_processing_tpu_torch.models import (
     BoxBlur, GaussianBlur, SobelEdgeDetection)
 from gpu_image_processing_tpu_torch.ops import fused, interleaved
@@ -113,8 +129,11 @@ from gpu_image_processing_tpu_torch.ops.cuda import (
 from gpu_image_processing_tpu_torch.ops.cuda import api as planar_api
 from gpu_image_processing_tpu_torch.ops.weights import (
     bf16_split, gaussian_kernel_f32, weights_to_torch)
+from gpu_image_processing_tpu_torch.parallel.mesh import make_mesh
+from gpu_image_processing_tpu_torch.parallel.spatial import (
+    make_sharded_filter, spatial_halo)
 from gpu_image_processing_tpu_torch.profiling.profiler import (
-    PEAKS, capture_trace, short_kernel_name)
+    PEAKS, capture_trace, profile_batch, profile_filter, short_kernel_name)
 from gpu_image_processing_tpu_torch.runtime.device import describe
 from gpu_image_processing_tpu_torch.runtime.dispatch import FilterRuntime
 from gpu_image_processing_tpu_torch.server.app import create_app
@@ -1487,6 +1506,211 @@ def main() -> int:
               f"(host clock, least of 5), CUDA events "
               f"{event_ms(lambda: fwd(image_t)):.4f} ms, of which the kernel "
               f"{times[kernel_name][0]:.4f} ms")
+    # -- 8. multi-device path on one card -----------------------------------
+    # A mesh may name one device several times: 4 shards on this card, as
+    # (dp, sp) = (2, 2) and (1, 4), rows exchanged as halo copies within the
+    # card.  K5 runs in its halo mode (rows_prepadded) and K6 with
+    # zero_rows=False, one launch a shard; the mesh batch runs the rows
+    # kernels, one launch a block.  Every result equals one device's.
+    t8 = time.perf_counter()
+    cards4 = [dev] * 4
+    meshes = {"(2, 2)": make_mesh(4, devices=cards4),
+              "(1, 4)": make_mesh(4, sp=4, devices=cards4)}
+    table3 = gaussian_kernel_f32(MAIN_GAUSS_RADIUS, MAIN_SIGMA)
+    batch4 = np.stack([image] + [rng.integers(0, 256, size=FULL, dtype=np.uint8)
+                                 for _ in range(3)])
+    # name -> (filter, builder kwargs, API level, the kernel a shard launches)
+    sharded_specs = {
+        "gaussian r=3": ("gaussian", dict(radius=MAIN_GAUSS_RADIUS), 2,
+                         "gaussian_planar"),
+        "box r=5": ("box", dict(radius=MAIN_BOX_RADIUS), 2, "box_planar"),
+        "sobel L2": ("sobel", dict(level=2), 2, "sobel_planar"),
+        "sobel L1": ("sobel", dict(level=1), 1, "sobel_f32_planar"),
+    }
+
+    def single_device(f: str, lv: int, img: np.ndarray) -> np.ndarray:
+        if f == "gaussian":
+            return api.gaussian_blur(img, MAIN_SIGMA, MAIN_GAUSS_RADIUS, lv,
+                                     runtime=rt)["image"]
+        if f == "box":
+            return api.box_blur(img, MAIN_BOX_RADIUS, lv, runtime=rt)["image"]
+        return api.sobel_edge_detection(img, lv, runtime=rt)["image"]
+
+    want4 = {name: np.stack([single_device(f, lv, img) for img in batch4])
+             for name, (f, _, lv, _) in sharded_specs.items()}
+    cases = {"1 image": slice(0, 1), "4 images": slice(0, 4),
+             "3 images (uneven B, H 2146 over sp)": slice(0, 3)}
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    sharded_calls = {name: 0 for name in PLANAR_KERNELS}
+    for mesh_name, mesh in meshes.items():
+        for name, (f, kw, lv, kernel) in sharded_specs.items():
+            fns = [make_sharded_filter(mesh, f, use_kernels=k, **kw)
+                   for k in (True, False)]
+            for case, sel in cases.items():
+                imgs = batch4[sel]
+                got, plain = (fn(imgs, table3) if f == "gaussian" else fn(imgs)
+                              for fn in fns)
+                sharded_calls[kernel] += 1
+                got, plain = got.cpu().numpy(), plain.cpu().numpy()
+                require(got.shape == imgs.shape,
+                        f"sharded {name} on {mesh_name}, {case}: {got.shape}")
+                require(np.array_equal(got, want4[name][sel]),
+                        f"sharded {name} on mesh {mesh_name}, {case}: differs "
+                        f"from the single-device API")
+                require(np.array_equal(plain, got),
+                        f"sharded {name} on mesh {mesh_name}, {case}: the plain "
+                        f"bodies differ from the kernels")
+    torch.cuda.synchronize()
+    sharded_launches = {name: LAUNCHES[name] for name in KERNELS}
+    print(f"sharded filters launches: {sharded_launches} (4 shards x calls "
+          f"{sharded_calls})")
+    for name in KERNELS:
+        require(sharded_launches[name] == 4 * sharded_calls.get(name, 0),
+                f"sharded filters launched {name} {sharded_launches[name]} times, "
+                f"not 4 x {sharded_calls.get(name, 0)}")
+    print(f"sharded filters at {w}x{h}x{c} on meshes {', '.join(meshes)} of "
+          f"cuda:0 x 4 ({', '.join(cases)}): gaussian r=3, box r=5, sobel L2, L1 "
+          f"equal the single-device API bit for bit, and the plain bodies")
+
+    # Serving: row-sharded single images and the mesh batch through a
+    # runtime whose mesh names this card 4 times, against the one-device
+    # runtime `rt`.  The switches are restored whatever happens.
+    rt_mesh = FilterRuntime(dev, mesh_devices=cards4)
+    serve_kw = {"gaussian": dict(sigma=MAIN_SIGMA, radius=MAIN_GAUSS_RADIUS),
+                "box": dict(radius=MAIN_BOX_RADIUS), "sobel": {}}
+    spatial_cases = [("gaussian", 1), ("gaussian", 2), ("gaussian", 4),
+                     ("box", 2), ("sobel", 1), ("sobel", 2), ("sobel", 4)]
+    sobel_l4 = calls["sobel"](4)["image"]
+    single_batch = {(f, lv): rt.run_batch(f, batch4, level=lv, **serve_kw[f])
+                    for f in serve_kw for lv in (2, 4)}
+    switches = ("GIP_TPU_MESH_SPATIAL", "GIP_TPU_MESH_BATCH",
+                "GIP_TPU_MESH_SPATIAL_MIN_ROWS_PER_SHARD")
+    saved = {k: os.environ.get(k) for k in switches}
+    try:
+        for k in switches:
+            os.environ.pop(k, None)
+        os.environ["GIP_TPU_MESH_SPATIAL"] = "1"
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        served = {(f, lv): rt_mesh.run(f, image, level=lv, **serve_kw[f])
+                  for f, lv in spatial_cases}
+        torch.cuda.synchronize()
+        spatial_launches = {name: LAUNCHES[name] for name in KERNELS}
+        os.environ.pop("GIP_TPU_MESH_SPATIAL")
+        os.environ["GIP_TPU_MESH_BATCH"] = "1"
+        LAUNCHES.clear()
+        mesh_batch = {key: rt_mesh.run_batch(key[0], batch4, level=key[1],
+                                             **serve_kw[key[0]])
+                      for key in single_batch}
+        torch.cuda.synchronize()
+        mesh_batch_launches = {name: LAUNCHES[name] for name in KERNELS}
+        # Profiled requests on these deployments profile the sharded calls.
+        deep = {"batch": profile_batch(rt_mesh, batch4, "gaussian", 2,
+                                       **serve_kw["gaussian"])}
+        os.environ.pop("GIP_TPU_MESH_BATCH")
+        os.environ["GIP_TPU_MESH_SPATIAL"] = "1"
+        deep["spatial"] = profile_filter(rt_mesh, image, "gaussian", 2,
+                                         **serve_kw["gaussian"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    spatial_keys = sorted(k for k in rt_mesh._warm if k[0] == "spatial")
+    print(f"spatial serving launches: {spatial_launches} ({len(served)} calls, "
+          f"keys {spatial_keys})")
+    print(f"mesh batch launches: {mesh_batch_launches} ({len(mesh_batch)} calls "
+          f"of 4 images over 4 blocks)")
+    # Each call runs its timed reps, and the first call of a key one untimed
+    # run more (gaussian L1/L2/L4 share a key, as do Sobel L1 and L4); a
+    # timed run whose spin ran out runs again.  So each kernel moves by a
+    # multiple of the 4 shards, at least 4 x the timed reps x its calls.
+    spatial_calls = {"gaussian_planar": 3, "box_planar": 1, "sobel_planar": 1,
+                     "sobel_f32_planar": 2}
+    for name in KERNELS:
+        n, calls_of = spatial_launches[name], spatial_calls.get(name, 0)
+        require(n % 4 == 0 and n >= 4 * config.TIMING_REPS * calls_of
+                and (n > 0) == (calls_of > 0),
+                f"spatial serving launched {name} {n} times for {calls_of} calls")
+    for name in ("gaussian_rows", "gaussian_band_rows", "box_rows", "sobel_rows",
+                 "sobel_f32_rows"):
+        require(mesh_batch_launches[name] >= 4 * config.TIMING_REPS,
+                f"mesh batch launched {name} {mesh_batch_launches[name]} times")
+    for name in PLANAR_KERNELS:
+        require(mesh_batch_launches[name] == 0, f"mesh batch launched {name}")
+    want_served = {("gaussian", 1): results[("gaussian", 2)]["image"],
+                   ("gaussian", 2): results[("gaussian", 2)]["image"],
+                   ("gaussian", 4): results[("gaussian", 2)]["image"],
+                   ("box", 2): results[("box", 2)]["image"],
+                   ("sobel", 1): results[("sobel", 1)]["image"],
+                   ("sobel", 2): results[("sobel", 2)]["image"],
+                   ("sobel", 4): sobel_l4}
+    for key, (out, metrics) in served.items():
+        require(np.array_equal(out, want_served[key]),
+                f"spatial serving {key}: differs from single-device serving")
+        require(metrics.time_ms > 0, f"spatial serving {key}: time_ms")
+    for key, (out, metrics) in mesh_batch.items():
+        require(np.array_equal(out, single_batch[key][0]),
+                f"mesh batch {key}: differs from the one-device batch")
+        require(metrics.fps > 0, f"mesh batch {key}: fps")
+    # The trace need not list every shard's launch (late in a process
+    # traces drop some hand-kernel launches, PERF.md): the kernel's name and
+    # a profiled time are required.
+    for what, path, time_ms in (("batch", "batch(dp=4)", mesh_batch[("gaussian", 2)][1].time_ms),
+                                ("spatial", "spatial(sp=4)", served[("gaussian", 2)][1].time_ms)):
+        got_path = deep[what]["config"]["Serving Path"]
+        names = deep[what]["kernels_profiled"]
+        require(got_path == path, f"profiled {what} request: Serving Path {got_path}")
+        require(any("gauss_window_rows<gip::Weighted" in k for k in names),
+                f"profiled {what} request lists no gaussian kernel: {names}")
+        require(deep[what]["total_kernel_duration_ms"] > 0, f"profiled {what}: no time")
+        print(f"[{card}] profile gaussian L2 {path}: {deep[what]['total_kernel_duration_ms']:.4f} "
+              f"ms a call (time_ms {time_ms:.4f}), rows: " + ", ".join(
+                  f"{short_kernel_name(k)} {v:.4f}"
+                  for k, v in deep[what].get("kernel_durations_ms", {}).items()))
+    print(f"serving on cuda:0 x 4 at {w}x{h}x{c}: spatial gaussian L1/L2/L4 == "
+          f"single-device L2, box L2, sobel L1/L2/L4 == single-device; mesh "
+          f"batch of 4 at L2 and L4 == the one-device batch")
+
+    # Times: the runtime's time_ms of row-sharded serving beside the
+    # single-device call's, and the sharded step's CUDA events at (1, 4)
+    # beside the one-launch kernel's, with the halo bytes a boundary (r rows
+    # each way: raw planes for the blurs, raw rows for Sobel).
+    sp_mesh = meshes["(1, 4)"]
+    img1 = batch4[:1]
+    for f, radius, kernel_name in (("gaussian", MAIN_GAUSS_RADIUS, "gaussian_rows"),
+                                   ("box", MAIN_BOX_RADIUS, "box_rows"),
+                                   ("sobel", 3, "sobel_rows")):
+        step = make_sharded_filter(sp_mesh, f, radius=radius)
+        blocks = step.shard(torch.from_numpy(img1).to(dev))
+        args = (table3,) if f == "gaussian" else ()
+        step_ms = event_ms(lambda: step.step(blocks, *args))
+        halo = spatial_halo(f, radius)
+        print(f"[{card}] sharded {f} L2 {w}x{h}x{c} sp=4 on one card: time_ms "
+              f"{served[(f, 2)][1].time_ms:.4f} (single-device "
+              f"{results[(f, 2)]['time_ms']:.4f}), step events {step_ms:.4f} ms "
+              f"(single-device kernel {times[kernel_name][0]:.4f} ms), halo "
+              f"{2 * halo * w * c} bytes a boundary, 3 boundaries")
+        # Where the step's time goes: the trace's device rows, ms a step.
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                step.step(blocks, *args)
+            torch.cuda.synchronize()
+        rows_ms = sorted(((e.device_time_total / 1000.0 / 5, e.count / 5,
+                           short_kernel_name(e.key)) for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and e.device_time_total > 0), reverse=True)
+        print(f"[{card}] sharded {f} L2 step trace (ms a step, launches a step): "
+              + "; ".join(f"{name} {ms:.4f} ({n:g})" for ms, n, name in rows_ms))
+    for key, (out, metrics) in mesh_batch.items():
+        print(f"[{card}] mesh batch {key[0]} L{key[1]} 4 x {w}x{h}x{c} dp=4 on one "
+              f"card: time_ms {metrics.time_ms:.4f} (one-device batch "
+              f"{single_batch[key][1].time_ms:.4f}), fps {metrics.fps:.1f}")
+    dryrun_multichip(4, devices=cards4)
+    print(f"multi-device phase: {time.perf_counter() - t8:.1f} s")
+    del batch4, want4, single_batch, mesh_batch
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
 
     # No single PyTorch call computes these functions (the u8 rounding
@@ -1495,8 +1719,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": spec["source"],
          "replaces": spec["replaces"], "also_replaces": spec["also_replaces"],
-         "launches": (server_launches if name in ROWS_KERNELS
-                      else planes_launches)[name],
+         "launches": (server_launches[name] + mesh_batch_launches[name]
+                      if name in ROWS_KERNELS
+                      else planes_launches[name] + spatial_launches[name]),
          "max_abs_err": max_err[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

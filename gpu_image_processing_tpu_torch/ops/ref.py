@@ -1,4 +1,5 @@
-"""Level-1 filters on (H, W, C) uint8 tensors: the reference numerics.
+"""Level-1 filters on (H, W, C) uint8 tensors, or (..., H, W, C) stacks of
+them: the reference numerics.
 
 The counterparts of the JAX package's `ops/ref.py` (:82-172), for callers
 that hold an image as a tensor.  An (H, W, C) image viewed as (H, W*C) rows
@@ -17,20 +18,20 @@ from .rounding import quantize_u8_f32
 
 
 def _rows(img_hwc: torch.Tensor) -> torch.Tensor:
-    height, width, channels = img_hwc.shape
-    return img_hwc.reshape(height, width * channels)
+    """(..., H, W, C) -> (..., H, W*C): each leading index is an image."""
+    return img_hwc.reshape(*img_hwc.shape[:-2], -1)
 
 
 def gaussian_blur(img_hwc: torch.Tensor, weights: torch.Tensor,
                   radius: int) -> torch.Tensor:
-    """Separable Gaussian blur, level-1 numerics. (H, W, C) u8 -> u8."""
+    """Separable Gaussian blur, level-1 numerics. (..., H, W, C) u8 -> u8."""
     out = interleaved.gaussian_rows(_rows(img_hwc), weights, radius,
                                     img_hwc.shape[-1])
     return out.reshape(img_hwc.shape)
 
 
 def box_blur(img_hwc: torch.Tensor, radius: int) -> torch.Tensor:
-    """Separable box blur, level-1 numerics. (H, W, C) u8 -> u8."""
+    """Separable box blur, level-1 numerics. (..., H, W, C) u8 -> u8."""
     out = interleaved.box_rows(_rows(img_hwc), radius, img_hwc.shape[-1])
     return out.reshape(img_hwc.shape)
 
@@ -48,7 +49,7 @@ def sobel_magnitude_u8(gray: torch.Tensor) -> torch.Tensor:
 
 
 def sobel(img_hwc: torch.Tensor, level: int) -> torch.Tensor:
-    """Sobel edge detection. (H, W, C) u8 -> (H, W, C) u8.
+    """Sobel edge detection. (..., H, W, C) u8 -> (..., H, W, C) u8.
 
     Level 1 keeps the grey value in f32; level 2 quantizes it to uint8
     first.  The edge value goes to every channel, alpha included.

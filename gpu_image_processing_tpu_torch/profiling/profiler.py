@@ -19,7 +19,9 @@ The same contract:
 The duration tiers:
 
 * on a CUDA device, ``torch_profiler_trace``: `torch.profiler` with CUDA
-  activity around `PROFILE_REPS` runs of the served rows function on the
+  activity around `PROFILE_REPS` runs of the call the runtime serves (the
+  rows function, or on a mesh deployment the row-sharded or mesh-batch
+  call, ``Serving Path`` ``spatial(sp=n)`` or ``batch(dp=n)``) on the
   image already on the card; each device row (a kernel, or a copy or fill
   if the function issued one) becomes an entry of `kernel_durations_ms`
   under its own name, its device time a call (`_trace_kernels`);
@@ -153,11 +155,11 @@ def _trace_kernels(prof, reps: int) -> dict[str, dict[str, float]]:
     return rows
 
 
-def _measure(device: torch.device, run: Callable[[], Any], reps: int,
-             ) -> tuple[list[float], Optional[dict], Optional[int]]:
+def _measure(devices: tuple[torch.device, ...], run: Callable[[], Any],
+             reps: int) -> tuple[list[float], Optional[dict], Optional[int]]:
     """(times_ms, trace rows, peak device bytes) of `reps` runs of `run`,
-    whose first call has been made."""
-    if device.type != "cuda":
+    whose first call has been made, on `devices` (one, or a mesh's)."""
+    if devices[0].type != "cuda":
         times = []
         for _ in range(reps):
             t0 = time.perf_counter()
@@ -169,18 +171,20 @@ def _measure(device: torch.device, run: Callable[[], Any], reps: int,
     # One session at a time: torch.profiler allows one in a process, and its
     # trace holds the whole device's activity.
     with _SESSION_LOCK:
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
+        for device in devices:
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 run()
-            torch.cuda.synchronize(device)
-        peak = torch.cuda.max_memory_allocated(device)
+            for device in devices:
+                torch.cuda.synchronize(device)
+        peak = max(torch.cuda.max_memory_allocated(d) for d in devices)
     kernels = _trace_kernels(prof, reps)
     if not kernels:
         raise RuntimeError("torch.profiler recorded no device activity on "
-                           f"{device}")
+                           f"{', '.join(map(str, devices))}")
     per_call = sum(k["per_call_ms"] for k in kernels.values())
     return [per_call] * reps, kernels, peak
 
@@ -264,31 +268,34 @@ def _assemble(*, device: torch.device, times_ms: list[float],
 def _profile(runtime: FilterRuntime, images: np.ndarray, filter_type: str,
              level: int, sigma: Optional[float], radius: Optional[int],
              batch: Optional[int], label: str) -> dict[str, Any]:
+    """Profile the call the runtime serves for the request: the same
+    prepared call (row-sharded or mesh-batched where the runtime's
+    switches route it), with its operands on the device(s) already."""
     sigma, radius = _defaults(filter_type, sigma, radius)
     height, width, channels = images.shape[-3:]
-    lvl, fn = runtime._prepare(filter_type, level, sigma, radius, width,
-                               channels)
-    host = np.require(images, np.uint8, ["C"]).reshape(*images.shape[:-2], -1)
-    rows = torch.from_numpy(host).to(runtime.device)
-    fn(rows)   # builds and warms, untimed
-    times, kernels, peak = _measure(runtime.device, lambda: fn(rows),
-                                    PROFILE_REPS)
-    shape = images.shape
-    flops = served_tensor_core_flops(filter_type, lvl, height, width,
+    if batch:
+        call = runtime._batch_call(filter_type, images, level, sigma, radius)
+    else:
+        call = runtime._single_call(filter_type, images, level, sigma, radius)
+    call.run()   # builds and warms, untimed
+    times, kernels, peak = _measure(call.devices, call.run, PROFILE_REPS)
+    flops = served_tensor_core_flops(filter_type, call.level, height, width,
                                      channels, radius, batch or 1)
-    extra = ({"Serving Path": "batch", "Batch Size": batch} if batch
-             else {"Serving Path": "single_image"})
-    return _assemble(device=runtime.device, times_ms=times, kernels=kernels,
+    extra = ({"Serving Path": call.path, "Batch Size": batch} if batch
+             else {"Serving Path": call.path})
+    return _assemble(device=call.devices[0], times_ms=times, kernels=kernels,
                      peak_bytes=peak, reps=PROFILE_REPS, label=label,
-                     shape=tuple(shape), tensor_flops=flops, extra_config=extra)
+                     shape=tuple(images.shape), tensor_flops=flops,
+                     extra_config=extra)
 
 
 def profile_filter(runtime: FilterRuntime, image: np.ndarray, filter_type: str,
                    level: int, sigma: Optional[float] = None,
                    radius: Optional[int] = None) -> dict[str, Any]:
-    """Profile one filter on one (H, W, C) image on `runtime`'s device: the
-    rows function the runtime serves for the request, on the image already
-    on the device."""
+    """Profile one filter on one (H, W, C) image as `runtime` serves it: the
+    rows function on its device, or on a row-sharded deployment
+    (``GIP_TPU_MESH_SPATIAL=1``) the sharded call, ``Serving Path``
+    ``spatial(sp=n)``."""
     lvl = normalize_level(filter_type, level)
     return _profile(runtime, image, filter_type, level, sigma, radius, None,
                     _kernel_label(filter_type, lvl))
@@ -298,7 +305,8 @@ def profile_batch(runtime: FilterRuntime, images: np.ndarray, filter_type: str,
                   level: int, sigma: Optional[float] = None,
                   radius: Optional[int] = None) -> dict[str, Any]:
     """Profile the batched path (/api/process-batch) on a (B, H, W, C) stack:
-    the one launch a kernel that `FilterRuntime.run_batch` serves."""
+    the one launch a kernel that `FilterRuntime.run_batch` serves, or with
+    ``GIP_TPU_MESH_BATCH=1`` one a device (``Serving Path`` ``batch(dp=n)``)."""
     lvl = normalize_level(filter_type, level)
     return _profile(runtime, images, filter_type, level, sigma, radius,
                     int(images.shape[0]), f"{filter_type}_batch_l{lvl}")

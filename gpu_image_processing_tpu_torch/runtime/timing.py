@@ -13,15 +13,17 @@ updates.  If the start event has completed by the time the filter returns
 on the host, the card went idle inside the bracket: that reading is not
 kept, and the run goes again with a longer spin (up to `MAX_SPIN_MS`, where
 the reading is kept as it is).  Host-to-device and device-to-host copies
-happen outside.  On the CPU the bracket is wall time.  The caller runs the
-work once untimed first, so a kernel's first call (which builds it) is
-never timed.
+happen outside.  On the CPU the bracket is wall time.  The devices of a
+mesh are timed alike: each card's queue is filled and bracketed, and the
+longest bracket counts (on one card, one bracket around every shard's
+launches and the halo copies).  The caller runs the work once untimed
+first, so a kernel's first call (which builds it) is never timed.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable
+from typing import Any, Callable, Sequence
 
 import torch
 
@@ -45,38 +47,51 @@ def spin_cycles(ms: float) -> int:
     return int(ms * 1e-3 * SPIN_CLOCK_HZ)
 
 
-def _timed_on_card(fn: Callable[[], torch.Tensor], device: torch.device,
-                   enqueue_ms: float) -> tuple[torch.Tensor, float, float]:
-    """(result, card ms, host enqueue ms) of one run of `fn` behind a spin."""
-    stream = torch.cuda.current_stream(device)
+def _timed_on_cards(fn: Callable[[], Any], devices: Sequence[torch.device],
+                    enqueue_ms: float) -> tuple[Any, float, float]:
+    """(result, card ms, host enqueue ms) of one run of `fn` behind a spin
+    on each card; the card ms is the longest of the cards' brackets."""
+    streams = [torch.cuda.current_stream(d) for d in devices]
     spin = spin_ms(enqueue_ms)
     while True:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        with torch.cuda.device(device):
-            torch.cuda._sleep(spin_cycles(spin))
-        start.record(stream)
+        starts = [torch.cuda.Event(enable_timing=True) for _ in devices]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in devices]
+        for device, stream, start in zip(devices, streams, starts):
+            with torch.cuda.device(device):
+                torch.cuda._sleep(spin_cycles(spin))
+            start.record(stream)
         t0 = time.perf_counter()
         out = fn()
         host_ms = (time.perf_counter() - t0) * 1000.0
-        idle = start.query()   # the spin ended before the host was done
-        end.record(stream)
-        end.synchronize()
+        # A spin that ended before the host was done left its card idle.
+        idle = any(start.query() for start in starts)
+        for stream, end in zip(streams, ends):
+            end.record(stream)
+        for end in ends:
+            end.synchronize()
         if not idle or spin >= MAX_SPIN_MS:
-            return out, start.elapsed_time(end), host_ms
+            return out, max(s.elapsed_time(e) for s, e in zip(starts, ends)), host_ms
         spin = max(2.0 * spin, spin_ms(host_ms))
 
 
-def timed(fn: Callable[[], torch.Tensor], device: torch.device, reps: int,
-          enqueue_ms: float = 0.0) -> tuple[torch.Tensor, float, float]:
+def timed(fn: Callable[[], Any],
+          device: torch.device | Sequence[torch.device], reps: int,
+          enqueue_ms: float = 0.0) -> tuple[Any, float, float]:
     """Run `fn` `reps` times; return its last result, the least time in ms
     and the least host time of a run in ms.  `enqueue_ms`: the host's time
-    to run `fn` measured before, which sizes the card's spin."""
+    to run `fn` measured before, which sizes the card's spin.
+
+    `device` is the device `fn` runs on, or the devices of a mesh (each
+    named once or more): each card's queue is filled, each card brackets
+    the run with its own events, and the longest bracket is the time.
+    """
+    devices = ([device] if isinstance(device, torch.device)
+               else list(dict.fromkeys(device)))
     best = host_best = float("inf")
     out = None
     for _ in range(max(1, reps)):
-        if device.type == "cuda":
-            out, ms, host_ms = _timed_on_card(fn, device, enqueue_ms)
+        if devices[0].type == "cuda":
+            out, ms, host_ms = _timed_on_cards(fn, devices, enqueue_ms)
             enqueue_ms = host_ms
         else:
             t0 = time.perf_counter()
