@@ -10,9 +10,9 @@ Phases, each of which fails the run on its own:
 1. device: CUDA present, compute capability 9.0; prints the card, its power
    limit and the toolchain;
 2. build: builds every library of the main path from the sources, one
-   compiler a library, all started together: nvcc for the kernels and the
-   PNG unfilter helper, the host C++ compiler for the upload decoders of
-   native/src;
+   compiler a library, all started together: nvcc for the kernels, the
+   host C++ compiler for the PNG codec helper (ops/cuda/png_codec.cpp) and
+   the upload decoders of native/src;
 3. kernel vs plain: each of the eleven launchers against its plain torch
    version on the card, at small shapes, edge shapes and the full 2146x3239
    RGB image, gaussian at r in {1, 2, 3, 15, 31} and the rows gaussian
@@ -28,7 +28,8 @@ Phases, each of which fails the run on its own:
    with its plain version on the same batch and equal its single-image
    launches; the rows gaussian launched from three threads at once with
    three tables, each launch equal to its own plain version;
-   the PNG codec's C++ unfilter helper against its numpy version; the
+   the PNG codec helper's unfilter against its numpy version, bpp 1 to
+   8, and its Sub rows; the
    upload decoders on the committed fixtures (tests/data/torch_formats:
    JPEG 4:2:0, 4:4:4 and grey, GIF, BMP, PSD, HDR, PIC, PNM, TGA and 1-,
    4-, 16-bit and interlaced PNG) against the pixels the JAX package
@@ -53,9 +54,12 @@ Phases, each of which fails the run on its own:
    time must be within 15% of `time_ms`; /api/process-batch with 4 images
    at levels 2 and 4 (one profiled), an error probe; the six rows kernels'
    launch counts read around that run, each request's wall split into
-   decode, run, encode and profile; then the codec's split (base64,
-   inflate, unfilter, CRC, JPEG decode, the whole PNG encode and its
-   deflate) on the scene's PNG and JPEG;
+   decode, run, encode and profile; then the codec's split on the scene's
+   PNG and JPEG, the native PNG tier beside the old one (base64, inflate,
+   the unfilter, CRC, both PNG decodes, JPEG decode; the answer's png_encode, its Sub rows, deflate
+   with run-length matching against level-1 full matching, and both
+   answers' sizes; beside them, as a yardstick, the JAX package's
+   gip_codec.cpp built here with zlib where the host has its header);
 6. planar path: (a) the models (`GaussianBlur`, `BoxBlur`,
    `SobelEdgeDetection`, an `nn.Sequential` of two), the six registry
    keys and `entry()` on the full image on the card, each equal to the
@@ -89,7 +93,23 @@ Phases, each of which fails the run on its own:
    the one-device batch, each path's launch counts read around it, a
    profiled request on each (`Serving Path` `spatial(sp=4)`, `batch(dp=4)`,
    the gaussian kernel's name and a time), the switches restored after; sharded `time_ms` and step events beside the
-   single-device ones, with the halo bytes; `dryrun_multichip(4)`.
+   single-device ones, with the halo bytes; `dryrun_multichip(4)`;
+9. host entry points at full size: the native PNG tier's decode of the
+   scene equal to the zlib tier's; the image-file CLI
+   (`tools/filter_image.py`), its runs in turn in one subprocess, on the
+   scene's PNG for
+   gaussian, box and Sobel at level 2 and gaussian at level 4, writing
+   .png, .ppm, .bmp, .tga (each equal to the API's result), .hdr and .jpg
+   (the native writers' bytes, read back), `--load 16` on a 16-bit PNG and
+   `--frames` on a 3-frame GIF, its printed lines checked and each run's
+   rows-kernel launches read around it; the four examples
+   (`gpu_image_processing_tpu_torch/examples/`) on the card in another
+   subprocess beside it; the launcher (`tools/serve.py start` on free
+   ports, the backend on cuda) starting meanwhile; then the frontend's `/`, the API client (`tools/client.py`, all
+   10 checks PASS), a full-size process-all through it (answers decode to
+   the API's pixels, `decode_tiers.native_png` counts every PNG upload),
+   and `stop`, after which no process of it is alive and both ports are
+   free.
 
 The line before the last is a JSON object `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`.  Any failure exits non-zero and prints no ok
@@ -99,9 +119,12 @@ line, as does a host without CUDA or a directory without the package.
 from __future__ import annotations
 
 import base64
+import ctypes
 import json
 import os
+import re
 import shutil
+import socket
 import struct
 import subprocess
 import sys
@@ -138,10 +161,10 @@ from gpu_image_processing_tpu_torch.runtime.device import describe
 from gpu_image_processing_tpu_torch.runtime.dispatch import FilterRuntime
 from gpu_image_processing_tpu_torch.server.app import create_app
 from gpu_image_processing_tpu_torch.server.http import AppServer
+from gpu_image_processing_tpu_torch.tools import serve
 from gpu_image_processing_tpu_torch.utils import native_codec
 from gpu_image_processing_tpu_torch.utils.image import (
-    decode_base64_image, decode_png, encode_png, host_unfilter, unfilter_native,
-    unfilter_plain)
+    decode_base64_image, decode_png, encode_png, unfilter_plain)
 from tests import oracle_numpy as oracle
 
 FULL = (2146, 3239, 3)        # the README image (bench.py:34,50-52)
@@ -451,30 +474,107 @@ def idat(png: bytes) -> bytes:
     return b"".join(parts)
 
 
+def reference_png_codec(work: str):
+    """The JAX package's C++ PNG tier (native/src/gip_codec.cpp on zlib),
+    built into `work` with the host C++ compiler and `-lz`, as a same-run
+    yardstick for the port's tier; None (and why) where this host cannot
+    build it.  Only the codec split reads it."""
+    src = build.NATIVE_DIR
+    lib_path = os.path.join(work, "libgip_codec.so")
+    proc = subprocess.run(
+        [build.cxx_path(), "-std=c++17", "-O2", "-shared", "-fPIC", "-o",
+         lib_path, str(src / "gip_codec.cpp"), str(src / "gip_formats.cpp"),
+         "-lz"], capture_output=True, text=True)
+    if proc.returncode != 0:
+        return None, proc.stderr.strip().splitlines()[-1:]
+    lib = ctypes.CDLL(lib_path)
+    out = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_size_t)]
+    lib.gip_png_encode.argtypes = [ctypes.c_char_p, *[ctypes.c_int] * 4, *out]
+    lib.gip_png_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                   ctypes.POINTER(ctypes.c_void_p),
+                                   *[ctypes.POINTER(ctypes.c_int)] * 3]
+    lib.gip_free.argtypes = [ctypes.c_void_p]
+    return lib, None
+
+
+def reference_encode(lib, img: np.ndarray) -> bytes:
+    buf, n = ctypes.c_void_p(), ctypes.c_size_t()
+    h, w, c = img.shape
+    require(lib.gip_png_encode(img.ctypes.data_as(ctypes.c_char_p), h, w, c, 1,
+                               ctypes.byref(buf), ctypes.byref(n)) == 0,
+            "gip_png_encode failed")
+    try:
+        return ctypes.string_at(buf, n.value)
+    finally:
+        lib.gip_free(buf)
+
+
+def reference_decode(lib, png: bytes) -> None:
+    buf = ctypes.c_void_p()
+    dims = [ctypes.c_int() for _ in range(3)]
+    require(lib.gip_png_decode(png, len(png), ctypes.byref(buf),
+                               *map(ctypes.byref, dims)) == 0,
+            "gip_png_decode failed")
+    lib.gip_free(buf)
+
+
 def codec_split(png: bytes, jpeg: bytes, answer: np.ndarray) -> dict[str, float]:
-    """Host-clock ms (least of 3) of each step of the server's codec: the
-    two uploads' decodes (base64, then inflate and unfilter for the PNG, the
-    native decoder for the JPEG) and the PNG encode of an answer (filter
-    and CRCs, deflate at level 1, base64)."""
+    """Host-clock ms (least of 3) of each step of the server's codec, the
+    native PNG tier beside the old one: the two uploads' decodes (base64,
+    then inflate and unfilter for the PNG; the native decoder for the
+    JPEG) and the PNG
+    encode of an answer (Sub rows, then deflate at level 1 with run-length
+    matching, as the native tier does, and with full matching, as the old
+    encoder did; base64); and the sizes of both answers."""
     h, w, c = answer.shape
     png_text, jpeg_text = (base64.b64encode(x) for x in (png, jpeg))
-    raw = np.frombuffer(zlib.decompress(idat(png)), np.uint8)
+    raw = zlib.decompress(idat(png))
+    lines = native_codec.png_filter_rows(answer, 1)
     out = encode_png(answer)
-    lines = zlib.decompress(idat(out))
-    unfilter = host_unfilter()
+
+    def rle() -> bytes:
+        deflater = zlib.compressobj(1, zlib.DEFLATED, 15, 8, zlib.Z_RLE)
+        return deflater.compress(lines) + deflater.flush()
+
     steps = {
         "PNG upload: base64 decode": best_ms(lambda: base64.b64decode(png_text)),
         "PNG upload: inflate": best_ms(lambda: zlib.decompress(idat(png))),
-        "PNG upload: unfilter": best_ms(lambda: unfilter(raw, h, w * c, c)),
+        "PNG upload: unfilter": best_ms(
+            lambda: native_codec.png_unfilter(raw, h, w * c, c)),
         "PNG upload: CRC of the image data": best_ms(lambda: zlib.crc32(idat(png))),
-        "PNG upload: decode_png in all": best_ms(lambda: decode_png(png)),
+        "PNG upload: native png_decode in all": best_ms(
+            lambda: native_codec.png_decode(png)),
+        "PNG upload: zlib-tier decode_png in all": best_ms(lambda: decode_png(png)),
         "JPEG upload: base64 decode": best_ms(lambda: base64.b64decode(jpeg_text)),
         "JPEG upload: native JPEG decode": best_ms(
             lambda: native_codec.jpeg_decode(jpeg)),
-        "PNG answer: encode_png in all": best_ms(lambda: encode_png(answer)),
-        "PNG answer: deflate": best_ms(lambda: zlib.compress(lines, 1)),
+        "PNG answer: png_encode in all": best_ms(lambda: encode_png(answer)),
+        "PNG answer: Sub rows": best_ms(
+            lambda: native_codec.png_filter_rows(answer, 1)),
+        "PNG answer: deflate level 1, run-length": best_ms(rle),
+        "PNG answer: deflate level 1, full matching": best_ms(
+            lambda: zlib.compress(lines, 1)),
         "PNG answer: base64 encode": best_ms(lambda: base64.b64encode(out)),
     }
+    steps["PNG answer bytes, run-length"] = float(len(out))
+    steps["PNG answer bytes, full matching"] = float(
+        len(out) - len(rle()) + len(zlib.compress(lines, 1)))
+    work = tempfile.mkdtemp(prefix="gip_smoke_codec_")
+    try:
+        lib, why = reference_png_codec(work)
+        if lib is None:
+            print(f"gip_codec.cpp not built here ({why}): its times not measured")
+        else:
+            ref = reference_encode(lib, answer)
+            print(f"gip_codec.cpp (zlib) beside the port's tier: the answer's "
+                  f"bytes {'equal' if ref == out else 'differ'} "
+                  f"({len(ref)} against {len(out)})")
+            steps["gip_codec.cpp: gip_png_encode"] = best_ms(
+                lambda: reference_encode(lib, answer))
+            steps["gip_codec.cpp: gip_png_decode of the upload"] = best_ms(
+                lambda: reference_decode(lib, png))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return steps
 
 
@@ -527,6 +627,334 @@ class Client:
         return status, out
 
 
+# -- phase 9: the host entry points ------------------------------------------
+
+#: Runs modules in turn as `python -m` would, in one process, and prints
+#: one JSON line: each job's exit code, its standard output and the kernel
+#: launches made during it (the counts around that job).  One process a
+#: batch pays torch's import and the card's context once.
+COUNTED_RUN = (
+    "import contextlib, io, json, runpy, sys, traceback\n"
+    "from gpu_image_processing_tpu_torch.ops.cuda import LAUNCHES\n"
+    "report = {}\n"
+    "for name, module, args in json.loads(sys.argv[1]):\n"
+    "    before, out, rc = dict(LAUNCHES), io.StringIO(), 0\n"
+    "    sys.argv = [module, *args]\n"
+    "    try:\n"
+    "        with contextlib.redirect_stdout(out):\n"
+    "            runpy.run_module(module, run_name='__main__', alter_sys=True)\n"
+    "    except SystemExit as exc:\n"
+    "        rc = exc.code if isinstance(exc.code, int) else int(exc.code is not None)\n"
+    "    except Exception:\n"
+    "        rc = 1\n"
+    "        traceback.print_exc()\n"
+    "    report[name] = {'rc': rc, 'stdout': out.getvalue(), 'launches': {\n"
+    "        k: v - before.get(k, 0) for k, v in LAUNCHES.items()}}\n"
+    "print('JOBS ' + json.dumps(report))\n")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI = "gpu_image_processing_tpu_torch.tools.filter_image"
+#: (output, filter, level): every writer, and the rows kernels K1-K4.
+CLI_RUNS = [("scene_gaussian.png", "gaussian", 2), ("scene_box.ppm", "box", 2),
+            ("scene_sobel.bmp", "sobel", 2), ("scene_band.tga", "gaussian", 4),
+            ("scene_gaussian.hdr", "gaussian", 2), ("scene_gaussian.jpg", "gaussian", 2)]
+CLI_KERNEL = {("gaussian", 2): "gaussian_rows", ("box", 2): "box_rows",
+              ("sobel", 2): "sobel_rows", ("gaussian", 4): "gaussian_band_rows"}
+EXAMPLES = ("compose_filters", "profile_kernels", "sharded_batch", "wide_formats")
+
+
+def gif_bytes(frames: np.ndarray, palette: np.ndarray, delay_cs: int) -> bytes:
+    """An animated GIF89a of (N, H, W) palette indices: 8-bit LZW written as
+    literal 9-bit codes with a clear code every 254, so the table never
+    widens (a valid stream any decoder reads)."""
+    _, h, w = frames.shape
+    out = bytearray(b"GIF89a" + struct.pack("<HHBBB", w, h, 0xF7, 0, 0)
+                    + palette.tobytes())
+    for frame in frames:
+        out += b"\x21\xf9\x04\x04" + struct.pack("<H", delay_cs) + b"\x00\x00"
+        out += b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0) + b"\x08"
+        lits = frame.reshape(-1).astype(np.uint16)
+        pad = -len(lits) % 254
+        groups = np.concatenate([lits, np.zeros(pad, np.uint16)]).reshape(-1, 254)
+        codes = np.concatenate([np.full((len(groups), 1), 256, np.uint16), groups],
+                               axis=1).reshape(-1)
+        codes = np.concatenate([codes[:len(codes) - pad], [257]]).astype(np.uint16)
+        bits = ((codes[:, None] >> np.arange(9, dtype=np.uint16)) & 1).astype(np.uint8)
+        data = np.packbits(bits.reshape(-1), bitorder="little").tobytes()
+        for i in range(0, len(data), 255):
+            out += bytes([len(data[i:i + 255])]) + data[i:i + 255]
+        out += b"\x00"
+    return bytes(out + b"\x3b")
+
+
+def png16_bytes(wide: np.ndarray) -> bytes:
+    """A 16-bit RGB PNG (filter None rows, zlib level 1)."""
+    h, w, c = wide.shape
+    lines = np.zeros((h, 1 + w * c * 2), np.uint8)
+    lines[:, 1:] = wide.astype(">u2").view(np.uint8).reshape(h, -1)
+
+    def chunk(kind: bytes, payload: bytes) -> bytes:
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(lines.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def start_counted(jobs: list[tuple[str, str, list[str]]],
+                  cwd: str) -> subprocess.Popen:
+    """The (name, module, args) jobs in turn in one subprocess, each run as
+    `python -m module args` would be, reporting each job's launches."""
+    return subprocess.Popen(
+        [sys.executable, "-c", COUNTED_RUN, json.dumps(jobs)], cwd=cwd,
+        env={**os.environ, "PYTHONPATH": ROOT},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_counted(proc: subprocess.Popen, what: str) -> dict[str, tuple[str, dict]]:
+    """{job: (stdout, launch counts)} of a counted batch; fails unless the
+    batch and every job in it exited 0."""
+    out, err = proc.communicate(timeout=600)
+    reports = [json.loads(line.split(" ", 1)[1]) for line in out.splitlines()
+               if line.startswith("JOBS ")]
+    require(proc.returncode == 0 and len(reports) == 1,
+            f"{what}: exit {proc.returncode}\n{out[-2000:]}\n{err[-3000:]}")
+    for name, job in reports[0].items():
+        require(job["rc"] == 0, f"{name}: exit {job['rc']}\n"
+                f"{job['stdout'][-2000:]}\n{err[-3000:]}")
+    return {name: (job["stdout"], job["launches"])
+            for name, job in reports[0].items()}
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def host_entry_points(rt: FilterRuntime, card: str, scene: np.ndarray,
+                      scene_png: bytes, rng: np.random.Generator) -> None:
+    """Phase 9: the native PNG tier, the image-file CLI, the launcher with
+    the API client, and the examples, at full size on the card."""
+    t9 = time.perf_counter()
+    h, w, c = scene.shape
+    pixels = native_codec.png_decode
+
+    def direct(f: str, lv: int, img: np.ndarray = scene) -> np.ndarray:
+        if f == "gaussian":
+            return api.gaussian_blur(img, MAIN_SIGMA, MAIN_GAUSS_RADIUS, lv,
+                                     runtime=rt)["image"]
+        if f == "box":
+            return api.box_blur(img, MAIN_BOX_RADIUS, lv, runtime=rt)["image"]
+        return api.sobel_edge_detection(img, lv, runtime=rt)["image"]
+
+    # 9.1 The native PNG tier against the zlib tier on the scene upload.
+    native = pixels(scene_png)
+    require(native is not None and np.array_equal(native, decode_png(scene_png))
+            and np.array_equal(native, scene),
+            "native png_decode of the scene differs from the zlib tier")
+    answer = direct("gaussian", 2)
+    require(np.array_equal(pixels(encode_png(answer)), answer),
+            "png_encode of an answer does not decode back")
+    print("native PNG tier: the scene upload decodes to the zlib tier's pixels; "
+          "an answer's png_encode decodes back")
+
+    work = tempfile.mkdtemp(prefix="gip_smoke_host_")
+    try:
+        # 9.2 The CLI on full-size files, its runs in turn in one process,
+        # the examples in turn in another beside it.
+        with open(os.path.join(work, "scene.png"), "wb") as f:
+            f.write(native_codec.png_encode(scene))
+        wide = scene.astype(np.uint16) * 257 + rng.integers(0, 257, scene.shape,
+                                                            dtype=np.uint16)
+        with open(os.path.join(work, "wide.png"), "wb") as f:
+            f.write(png16_bytes(wide))
+        # Three frames of the scene at a quarter of its sides, in 3-3-2 bit
+        # colour, each shifted along the rows.
+        small = scene[::4, ::4].astype(np.uint16)
+        index = ((small[..., 0] >> 5) << 5) | ((small[..., 1] >> 5) << 2) | (small[..., 2] >> 6)
+        i = np.arange(256)
+        palette = np.stack([((i >> 5) << 5) + 16, (((i >> 2) & 7) << 5) + 16,
+                            ((i & 3) << 6) + 32], axis=1).astype(np.uint8)
+        frames = np.stack([np.roll(index, 7 * k, axis=1) for k in range(3)]
+                          ).astype(np.uint8)
+        with open(os.path.join(work, "anim.gif"), "wb") as f:
+            f.write(gif_bytes(frames, palette, 6))
+        params = {"gaussian": ["--sigma", str(MAIN_SIGMA), "--radius",
+                               str(MAIN_GAUSS_RADIUS)],
+                  "box": ["--radius", str(MAIN_BOX_RADIUS)], "sobel": []}
+        # The launcher starts (its backend warms its kernels) while the CLI
+        # runs and the examples run, one process each.
+        ports = (free_port(), free_port())
+        run_dir = os.path.join(work, "run")
+        launcher = [sys.executable, "-m", "gpu_image_processing_tpu_torch.tools.serve",
+                    "--device", "cuda", "--host", "127.0.0.1", "--port",
+                    str(ports[0]), "--frontend-port", str(ports[1]),
+                    "--run-dir", run_dir, "--timeout", "300"]
+        t0 = time.perf_counter()
+        starting = subprocess.Popen([*launcher[:3], "start", *launcher[3:]],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)
+        batches = {}
+        try:
+            cli_jobs = [(out, CLI, ["scene.png", out, "--filter", f, "--level", str(lv),
+                                    *params[f]]) for out, f, lv in CLI_RUNS]
+            cli_jobs.append(("wide", CLI, ["wide.png", "wide_out.png", "--load", "16",
+                                           "--filter", "gaussian", *params["gaussian"]]))
+            cli_jobs.append(("frames", CLI, ["anim.gif", "--frames", "--filter", "box",
+                                             *params["box"]]))
+            batches = {"CLI": start_counted(cli_jobs, work), "examples": start_counted(
+                [(name, f"gpu_image_processing_tpu_torch.examples.{name}", [])
+                 for name in EXAMPLES], work)}
+            results = {}
+            for what, proc in batches.items():
+                results.update(finish_counted(proc, what))
+            cli_launches, diffs = {}, {}
+            for out, f, lv in CLI_RUNS:
+                stdout, counts = results[out]
+                kernel = CLI_KERNEL[(f, lv)]
+                require(counts.get(kernel, 0) > 0,
+                        f"CLI {f} L{lv} never launched {kernel}: {counts}")
+                cli_launches[out] = {k: v for k, v in counts.items() if v}
+                lines = stdout.splitlines()
+                require(lines[0] == f"Loaded scene.png: {w}x{h}, {c} channel(s)"
+                        and lines[1] == f"Filter: {f} level {lv}"
+                        and lines[2].startswith("  Time:") and lines[3].startswith(
+                            "  Bandwidth:") and lines[4].startswith("  FPS:")
+                        and re.fullmatch(r"  (meets|misses) 30 FPS target \(33\.3 ms budget\)",
+                                         lines[5])
+                        and re.fullmatch(r"  (meets|misses) 60 FPS target \(16\.7 ms budget\)",
+                                         lines[6])
+                        and lines[7] == f"Saved: {out}" and len(lines) == 8,
+                        f"CLI {f} L{lv} printed:\n{stdout}")
+                with open(os.path.join(work, out), "rb") as fh:
+                    data = fh.read()
+                want = direct(f, lv)
+                ext = os.path.splitext(out)[1]
+                if ext == ".hdr":
+                    ref = os.path.join(work, "ref.hdr")
+                    native_codec.hdr_write(ref, want)
+                    with open(ref, "rb") as fh:
+                        require(data == fh.read(), "CLI .hdr differs from hdr_write")
+                    # RGBE shares one exponent among a pixel's channels, so a
+                    # dark channel beside a bright one reads back coarser.
+                    back = native_codec.hdr_decode(data)
+                    diffs["hdr"] = np.abs(back.astype(int) - want)
+                    require(back.shape == want.shape and diffs["hdr"].mean() < 2.0,
+                            f"CLI .hdr reads back with mean error "
+                            f"{diffs['hdr'].mean():.2f}")
+                elif ext == ".jpg":
+                    require(data == native_codec.jpeg_encode(want, 90),
+                            "CLI .jpg differs from jpeg_encode at quality 90")
+                    back = native_codec.jpeg_decode(data)
+                    diffs["jpg"] = np.abs(back.astype(int) - want)
+                    require(back.shape == want.shape and diffs["jpg"].mean() < 3.0,
+                            f"CLI .jpg reads back with mean error "
+                            f"{diffs['jpg'].mean():.2f}")
+                else:
+                    back = {".png": pixels, ".ppm": native_codec.pnm_decode,
+                            ".bmp": native_codec.bmp_decode,
+                            ".tga": native_codec.tga_decode}[ext](data)
+                    require(np.array_equal(back, want),
+                            f"CLI {f} L{lv} {ext} differs from the API's result")
+            stdout, counts = results["wide"]
+            wide_want = direct("gaussian", 2, (wide >> 8).astype(np.uint8))
+            with open(os.path.join(work, "wide_out.png"), "rb") as fh:
+                require(np.array_equal(pixels(fh.read()), wide_want),
+                        "CLI --load 16 differs from the API on the high byte")
+            require(stdout.splitlines()[0] == (
+                f"Loaded wide.png as uint16: range [{int(wide.min())}, "
+                f"{int(wide.max())}] (3 channel(s))") and counts.get("gaussian_rows", 0) > 0,
+                f"CLI --load 16 printed:\n{stdout}")
+            stdout, counts = results["frames"]
+            require(stdout.splitlines()[0].startswith(
+                f"Loaded anim.gif: 3 frame(s), {w // 4 + (w % 4 > 0)}x{h // 4 + (h % 4 > 0)} "
+                f"(native tier), delays(ms)=[60, 60, 60]") and counts.get("box_rows", 0) > 0,
+                f"CLI --frames printed:\n{stdout}")
+            for k in range(3):
+                with open(os.path.join(work, f"anim_box_l2_f{k:03d}.png"), "rb") as fh:
+                    require(np.array_equal(pixels(fh.read()), direct(
+                        "box", 2, palette[frames[k]])),
+                        f"CLI --frames frame {k} differs from the API")
+            print(f"CLI at {w}x{h}: {len(CLI_RUNS)} runs (.png .ppm .bmp .tga lossless "
+                  f"and equal to the API; .hdr and .jpg the native writers' bytes, "
+                  f"read back within mean / max " + ", ".join(
+                      f"{k} {d.mean():.3f} / {d.max()}" for k, d in diffs.items())
+                  + "), "
+                  f"--load 16, --frames on 3 GIF frames; launches a run: "
+                  + "; ".join(f"{o} {n}" for o, n in cli_launches.items()))
+            print(f"examples: {', '.join(EXAMPLES)} exit 0 on cuda; "
+                  + "; ".join(f"{n}: {results[n][0].strip().splitlines()[-1]}"
+                              for n in EXAMPLES))
+
+            # 9.3 The launcher on free ports, the client through it, one
+            # full-size process-all, then stop: nothing of it left.
+            start_out, start_err = starting.communicate(timeout=400)
+            start_s = time.perf_counter() - t0
+            pids = [serve.read_pid(run_dir, n) for n in ("backend", "frontend")]
+            require(starting.returncode == 0 and all(pids),
+                    f"serve start: exit {starting.returncode}\n{start_out}"
+                    f"\n{start_err}")
+            opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+            with opener.open(f"http://127.0.0.1:{ports[1]}/", timeout=30) as resp:
+                require(resp.read() == open(os.path.join(ROOT, "frontend", "index.html"),
+                                            "rb").read(),
+                        "the frontend's / is not frontend/index.html")
+            base = f"http://127.0.0.1:{ports[0]}"
+            checked = subprocess.run(
+                [sys.executable, "-m", "gpu_image_processing_tpu_torch.tools.client",
+                 "--base", base, "--outdir", os.path.join(work, "client")],
+                capture_output=True, text=True, timeout=600)
+            require(checked.returncode == 0 and checked.stdout.count("[PASS]") == 10
+                    and "[FAIL]" not in checked.stdout,
+                    f"client: exit {checked.returncode}\n{checked.stdout}\n"
+                    f"{checked.stderr[-2000:]}")
+            client = Client(base, card)
+            tiers0 = client.get("/api/stats")[1]["decode_tiers"]
+            scene_b64 = "data:image/png;base64," + base64.b64encode(scene_png).decode()
+            status, out = client.post("/api/process-all", {
+                "image": scene_b64, "filter": "gaussian", "sigma": MAIN_SIGMA,
+                "radius": MAIN_GAUSS_RADIUS}, f"gaussian {w}x{h} through the launcher")
+            require(status == 200, f"process-all through the launcher: {status}")
+            tiers = client.get("/api/stats")[1]["decode_tiers"]
+            require(tiers["native_png"] - tiers0["native_png"] == 1
+                    and tiers0["native_png"] == 6 and tiers["zlib_png"] == 0,
+                    f"decode_tiers after the client's 6 PNG uploads and one "
+                    f"process-all: {tiers0} -> {tiers}")
+            require(out["original_image"] == scene_b64,
+                    "process-all: the original is not the upload passed through")
+            for lv in (1, 2):
+                require(np.array_equal(pixels(base64.b64decode(
+                    out["results"][f"level_{lv}"]["processed_image"].split(",", 1)[1])),
+                    direct("gaussian", lv)),
+                    f"process-all through the launcher: level_{lv} differs")
+        finally:
+            for proc in (starting, *batches.values()):
+                if proc.poll() is None:   # a check failed before its end
+                    proc.kill()
+                    proc.communicate()
+            stopped = subprocess.run([*launcher[:3], "stop", *launcher[3:]],
+                                     capture_output=True, text=True, timeout=120)
+        for pid in filter(None, pids):
+            try:   # reap it if this process inherited it
+                os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:
+                pass
+        alive = [pid for pid in filter(None, pids) if serve.pid_alive(pid)]
+        require(stopped.returncode == 0 and not alive
+                and not serve.port_in_use(ports[0]) and not serve.port_in_use(ports[1]),
+                f"serve stop: exit {stopped.returncode}, alive {alive}\n{stopped.stdout}")
+        print(f"launcher: start on cuda in {start_s:.1f} s (backend pid {pids[0]}, "
+              f"frontend pid {pids[1]} serving frontend/index.html), the client's "
+              f"10 checks PASS, process-all {w}x{h} answers decode to the API's "
+              f"pixels, decode_tiers.native_png counted all 7 PNG uploads; stop: "
+              f"no process left, ports {ports[0]} and {ports[1]} free")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"host entry points phase: {time.perf_counter() - t9:.1f} s")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -557,8 +985,8 @@ def main() -> int:
     build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{', '.join(build.LIBRARIES)} (one compiler each, in parallel: "
-          f"nvcc for the kernels and the unfilter helper, the host C++ "
-          f"compiler for the decoders); each: " + ", ".join(
+          f"nvcc for the kernels, the host C++ compiler for the PNG codec "
+          f"helper and the decoders); each: " + ", ".join(
               f"{n} {t:.1f} s" for n, t in build.BUILD_SECONDS.items()))
     for name, log in build.BUILD_LOGS.items():
         for line in log.splitlines():
@@ -782,20 +1210,24 @@ def main() -> int:
           f"zero_rows=False and no halo rows equals its plain version")
     del imgs, batch_planes, flat, band
 
-    # The PNG codec's C++ unfilter helper against its numpy plain version,
-    # every filter type in turn, 1 to 4 bytes a pixel.
-    for bpp in (1, 2, 3, 4):
+    # The PNG codec's C++ helper (ops/cuda/png_codec.cpp): its unfilter
+    # against the numpy plain version, every filter type in turn, 1 to 8
+    # bytes a pixel; its Sub filter rows against numpy.
+    for bpp in range(1, 9):
         height, row_bytes = 40, 97 * bpp
         raw = rng.integers(0, 256, size=(height, row_bytes + 1), dtype=np.uint8)
         raw[:, 0] = np.arange(height) % 5
-        require(np.array_equal(
-            unfilter_native(raw.reshape(-1), height, row_bytes, bpp),
-            unfilter_plain(raw.reshape(-1), height, row_bytes, bpp)),
+        want = unfilter_plain(raw.reshape(-1), height, row_bytes, bpp)
+        require(np.array_equal(native_codec.png_unfilter(
+            raw.reshape(-1), height, row_bytes, bpp), want),
             f"png unfilter helper differs from its plain version at bpp {bpp}")
-    require(host_unfilter() is unfilter_native,
-            "the codec does not decode with the C++ unfilter helper here")
-    print("png unfilter helper == plain for filter types 0-4, bpp 1-4; the "
-          "codec decodes with the helper")
+    rows = rng.integers(0, 256, size=(7, 33 * 3), dtype=np.uint8)
+    sub = rows.copy()
+    sub[:, 3:] -= rows[:, :-3]
+    require(np.array_equal(native_codec.png_filter_rows(
+        rows.reshape(7, 33, 3), 1)[:, 1:], sub), "png Sub filter rows")
+    print("png codec helper: unfilter == plain for filter types 0-4, "
+          "bpp 1-8; Sub rows == numpy")
 
     # The upload decoders (JPEG and the native formats through the library
     # of native/src, PNG through the port's codec) on the committed
@@ -1135,7 +1567,8 @@ def main() -> int:
     # The codec's split on the scene's uploads and its PNG answer.
     split = codec_split(scene_png, scene_jpeg, served[("gaussian", 2)])
     print(f"[{card}] codec split at {w}x{h} (host clock, ms, least of 3): "
-          + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
+          + ", ".join(f"{k} {int(v)}" if "bytes" in k else f"{k} {v:.1f}"
+                      for k, v in split.items()))
 
     # The served pixels against direct calls and the level-2 / plain results.
     for (f, lv), got in served.items():
@@ -1711,6 +2144,9 @@ def main() -> int:
     dryrun_multichip(4, devices=cards4)
     print(f"multi-device phase: {time.perf_counter() - t8:.1f} s")
     del batch4, want4, single_batch, mesh_batch
+
+    # -- 9. host entry points at full size ----------------------------------
+    host_entry_points(rt, card, scene, scene_png, rng)
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
 
     # No single PyTorch call computes these functions (the u8 rounding

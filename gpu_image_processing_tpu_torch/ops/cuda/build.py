@@ -2,22 +2,22 @@
 
 Each `<name>.cu` beside this module is compiled on first use into a shared
 library with a plain C interface, for Hopper only
-(`-gencode arch=compute_90a,code=sm_90a`).  A `<name>.cpp` is a host helper
-(the PNG unfilter of utils/image.py), built by the same step with nvcc
-driving the host compiler.  The library lands in `_build/` beside the
-sources (listed in `.gitignore`) under a name keyed by a hash of the
-sources, the headers and the flags, so an edited source rebuilds and an
+(`-gencode arch=compute_90a,code=sm_90a`).  The library lands in `_build/`
+beside the sources (listed in `.gitignore`) under a name keyed by a hash of
+the sources, the headers and the flags, so an edited source rebuilds and an
 unchanged one loads at once.
 
 The launch functions take `tensor.data_ptr()`, sizes and PyTorch's current
 stream as plain integers, launch on that stream without synchronising, and
 return `cudaGetLastError()`; `check` turns a non-zero code into an error.
-The image decoders of the upload codec (utils/native_codec.py) are host
-code too: `native/src/gip_jpeg.cpp` and `native/src/gip_formats.cpp`, which
-need only standard headers, are compiled where they stand into one library,
-`DECODERS`, with the host C++ compiler (`CXX_FLAGS`), not nvcc, so that it
-builds on any host with a C++ compiler, the card's or not.  It lands in
-`_build/` beside the kernels, keyed the same way.
+The codec's libraries (utils/native_codec.py) are host code: the PNG
+tier's scanline helper `png_codec.cpp` beside this module
+(`HOST_SOURCES`), and the image decoders `native/src/gip_jpeg.cpp` and
+`native/src/gip_formats.cpp`, which need only standard headers and are
+compiled where they stand into one library, `DECODERS`.  Both are built
+with the host C++ compiler (`CXX_FLAGS`), not nvcc, so that they build on
+any host with a C++ compiler, the card's or not.  They land in `_build/`
+beside the kernels, keyed the same way.
 
 A build failure raises with the compiler's stderr.  Nothing here falls back
 to another path.
@@ -45,10 +45,12 @@ BUILD_DIR = SOURCE_DIR / "_build"
 DECODERS = "gip_decoders"
 NATIVE_DIR = SOURCE_DIR.parents[2] / "native" / "src"
 DECODER_SOURCES = (NATIVE_DIR / "gip_jpeg.cpp", NATIVE_DIR / "gip_formats.cpp")
-#: The libraries built by nvcc: the kernels, then the host PNG helper.
-SOURCES = ("blur", "sobel", "png_unfilter")
+#: The libraries built by nvcc: the kernels.
+SOURCES = ("blur", "sobel")
+#: The host helpers beside this module (`<name>.cpp`), built by CXX_FLAGS.
+HOST_SOURCES = ("png_codec",)
 #: Every library the port builds.
-LIBRARIES = (*SOURCES, DECODERS)
+LIBRARIES = (*SOURCES, *HOST_SOURCES, DECODERS)
 
 #: Hopper only; `-fmad=false` keeps every multiply and add rounded apart
 #: (the kernels also use `_rn` intrinsics).  Never `--use_fast_math`.
@@ -58,7 +60,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-#: The decoders: plain C++17, no CUDA.  `--no-undefined` makes a missing
+#: The host libraries: plain C++17, no CUDA.  `--no-undefined` makes a missing
 #: symbol a build error, not a failure at load time.
 CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-Wl,--no-undefined")
 
@@ -106,17 +108,14 @@ def cxx_path() -> str:
     raise RuntimeError("no C++ compiler (c++ or g++) on PATH")
 
 
-def _source(name: str) -> Path:
-    """`<name>.cu`, else the host source `<name>.cpp`."""
-    cu = SOURCE_DIR / f"{name}.cu"
-    return cu if cu.exists() else SOURCE_DIR / f"{name}.cpp"
-
-
 def _inputs(name: str) -> tuple[tuple[str, ...], list[Path]]:
     """(flags, every file the library is built from) of library `name`."""
     if name == DECODERS:
         return CXX_FLAGS, [*DECODER_SOURCES, NATIVE_DIR / "gip_limits.h"]
-    return NVCC_FLAGS, [_source(name), *sorted(SOURCE_DIR.glob("*.cuh"))]
+    if name in HOST_SOURCES:
+        return CXX_FLAGS, [SOURCE_DIR / f"{name}.cpp"]
+    return NVCC_FLAGS, [SOURCE_DIR / f"{name}.cu",
+                        *sorted(SOURCE_DIR.glob("*.cuh"))]
 
 
 def _source_hash(name: str) -> str:
@@ -132,7 +131,11 @@ def _command(name: str, target: str) -> list[str]:
     if name == DECODERS:
         return [cxx_path(), *CXX_FLAGS, "-o", target,
                 *map(str, DECODER_SOURCES)]
-    return [nvcc_path(), *NVCC_FLAGS, "-o", target, str(_source(name))]
+    if name in HOST_SOURCES:
+        return [cxx_path(), *CXX_FLAGS, "-o", target,
+                str(SOURCE_DIR / f"{name}.cpp")]
+    return [nvcc_path(), *NVCC_FLAGS, "-o", target,
+            str(SOURCE_DIR / f"{name}.cu")]
 
 
 def _compile(name: str, target: Path) -> str:
@@ -174,8 +177,8 @@ def build_all(names: tuple[str, ...] = LIBRARIES) -> None:
 
 
 def load_host(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
-    """Library `name` (`<name>.cpp` or `.cu`, or `DECODERS`), built first
-    if needed; raises with the compiler's stderr if the build fails.
+    """Library `name` (`<name>.cu`, a host source, or `DECODERS`), built
+    first if needed; raises with the compiler's stderr if the build fails.
 
     `signatures` maps each function to its ctypes argument types; every one
     returns an int.

@@ -7,36 +7,36 @@ the serving path always processes RGB (grey, grey+alpha, palette and RGBA
 are converted); outbound images are PNG-encoded and returned as a
 ``data:image/png;base64,`` URL.
 
-Uploads are routed by their first bytes, as the JAX package routes them
-without Pillow (its tier on a host without Pillow, such as the card's
-machine):
+Uploads are routed as the JAX package routes them without Pillow (its
+tier on a host without Pillow, such as the card's machine):
 
-* PNG: the codec below, on the standard library's `zlib` (tier
-  ``zlib_png``).  Every bit depth (1, 2, 4, 8, 16), every colour type and
-  Adam7 interlace, reduced to 8 bits as the JAX package's Pillow tier
-  reduces them: 1-, 2- and 4-bit grey scale to 0-255, 16-bit grey rescales
-  by its maximum (`_pil_to_rgb` there), other 16-bit samples keep their
-  high byte, palettes expand through PLTE, and alpha and tRNS are dropped
-  when the image is normalized to RGB.  It encodes with filter type 1
-  (Sub) at zlib level 1.
+* first the native PNG tier, `native_codec.png_decode` (tier
+  ``native_png``), as the JAX package tries `gip_png_decode` first: every
+  bit depth, colour type and Adam7, reduced as stb_image reduces them
+  (16-bit samples keep their high byte);
+* a PNG the native tier refuses (a palette over 256 entries, a tRNS
+  longer than the palette, ...): the codec below, on the standard
+  library's `zlib` (tier ``zlib_png``), which reduces to 8 bits as the
+  JAX package's Pillow tier does (16-bit grey rescales by its maximum,
+  `_pil_to_rgb` there) and checks the chunks' CRCs;
 * JPEG (baseline and progressive), then by magic bytes HDR and PIC, then GIF, BMP, PSD and
   binary PNM, and last TGA, which has no magic bytes (`_tga_plausible`):
   the C++ decoders of `native/src` through utils/native_codec.py (tiers
   ``native_jpeg`` ... ``native_tga``), built at first use.
 
-Unfiltering the Average and Paeth filters is sequential along a row.  On a
-host with nvcc that step runs in the host C++ helper
-`ops/cuda/png_unfilter.cpp`, built at first use by ops/cuda/build.py; a
-failed build raises.  On a host without nvcc it runs in `unfilter_plain`
-(numpy and Python), the helper's plain version, which the tests also use.
-`host_unfilter` makes that choice once per process.
+`load_image_file` (the upload endpoint and the image-file CLI) keeps the
+Pillow tier's reductions, as the JAX package's file loaders open PNG with
+Pillow.  Every PNG answer is `native_codec.png_encode(img, 1)`: the Sub
+filter and zlib level 1 with run-length matching.  Both tiers unfilter
+rows in the host C++ helper `ops/cuda/png_codec.cpp`, built at first use
+by ops/cuda/build.py with the host C++ compiler; a failed build raises.
+`unfilter_plain` (numpy and Python) is its plain version, for the tests.
 """
 
 from __future__ import annotations
 
 import base64
 import binascii
-import ctypes
 import struct
 import threading
 import zlib
@@ -45,7 +45,6 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from ..ops.cuda import build
 from . import native_codec
 
 
@@ -53,16 +52,7 @@ class ImageCodecError(ValueError):
     pass
 
 
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-#: Samples per pixel of each PNG colour type (palette: one index).
-_SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
-#: The bit depths each colour type allows (PNG specification, table 11.1).
-_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
-           6: (8, 16)}
-_COLOUR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}
-#: Adam7 passes: (x0, y0, dx, dy).
-_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
-          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+_PNG_SIGNATURE = native_codec.PNG_SIGNATURE
 #: Decode-bomb guard: the largest image a PNG may declare.
 MAX_PIXELS = 1 << 28
 
@@ -87,9 +77,8 @@ def _fail(why: str) -> ImageCodecError:
 # -- decode tiers --------------------------------------------------------------
 
 # Which decoder served each base64 upload, in /api/stats as `decode_tiers`:
-# the JAX package's native keys and `failed`, and `zlib_png` for the PNG
-# codec here.  `native_png` stays 0: the JAX package's zlib-backed native
-# PNG codec (native/src/gip_codec.cpp) is not built.
+# the JAX package's native keys and `failed`, and `zlib_png` for the PNGs
+# the native tier refuses and the codec here decodes.
 DECODE_TIERS = (
     "zlib_png",
     "native_png",
@@ -160,41 +149,6 @@ def unfilter_plain(raw: np.ndarray, height: int, row_bytes: int,
     return out
 
 
-def unfilter_native(raw: np.ndarray, height: int, row_bytes: int,
-                    bpp: int) -> np.ndarray:
-    """`unfilter_plain` in the host C++ helper (built at first use)."""
-    lib = build.load_host("png_unfilter", {"gip_png_unfilter": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int]})
-    raw = np.ascontiguousarray(raw, np.uint8)
-    if raw.size != height * (row_bytes + 1):
-        raise ValueError(f"{raw.size} scanline bytes for {height} rows of "
-                         f"{row_bytes}")
-    out = np.empty((height, row_bytes), np.uint8)
-    code = lib.gip_png_unfilter(raw.ctypes.data, out.ctypes.data, height,
-                                row_bytes, bpp)
-    if code != 0:
-        raise _fail(f"unknown PNG filter type in row {-code - 1}")
-    return out
-
-
-_HOST_UNFILTER = None
-
-
-def host_unfilter():
-    """The unfilter this host decodes with, chosen once: `unfilter_native`
-    where nvcc can build the helper, else `unfilter_plain`."""
-    global _HOST_UNFILTER
-    if _HOST_UNFILTER is None:
-        try:
-            build.nvcc_path()
-        except RuntimeError:
-            _HOST_UNFILTER = unfilter_plain
-        else:
-            _HOST_UNFILTER = unfilter_native
-    return _HOST_UNFILTER
-
-
 # -- PNG ---------------------------------------------------------------------
 
 
@@ -224,22 +178,6 @@ def _chunks(data: bytes):
             return
         pos = end
     raise _fail("PNG without IEND")
-
-
-def _unpack_samples(packed: np.ndarray, width: int, samples: int,
-                    depth: int) -> np.ndarray:
-    """(rows, row_bytes) unfiltered bytes -> (rows, width, samples) values at
-    their own depth (uint16 at depth 16, uint8 below)."""
-    rows = packed.shape[0]
-    if depth == 16:
-        return packed.view(">u2").astype(np.uint16).reshape(rows, width, samples)
-    if depth == 8:
-        return packed.reshape(rows, width, samples)
-    bits = np.unpackbits(packed, axis=1)[:, :width * depth]
-    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
-    values = (bits.reshape(rows, width, depth) * weights).sum(
-        axis=2, dtype=np.uint8)
-    return values[:, :, None]
 
 
 def _png_samples(data: bytes) -> tuple[np.ndarray, PngHeader, np.ndarray]:
@@ -272,7 +210,7 @@ def _png_samples(data: bytes) -> tuple[np.ndarray, PngHeader, np.ndarray]:
         raise _fail("PNG without IHDR")
     width, height, depth, colour = (header.width, header.height, header.depth,
                                     header.colour)
-    if depth not in _DEPTHS.get(colour, ()):
+    if depth not in native_codec.DEPTHS.get(colour, ()):
         raise _fail(f"PNG of bit depth {depth} and colour type {colour}")
     if header.interlace not in (0, 1):
         raise _fail(f"PNG interlace method {header.interlace}")
@@ -280,9 +218,9 @@ def _png_samples(data: bytes) -> tuple[np.ndarray, PngHeader, np.ndarray]:
         raise _fail(f"PNG of {width}x{height} pixels")
     if colour == 3 and palette is None:
         raise _fail("palette PNG without PLTE")
-    samples = _SAMPLES[colour]
+    samples = native_codec.SAMPLES[colour]
     bpp = max(1, samples * depth // 8)
-    passes = _ADAM7 if header.interlace else ((0, 0, 1, 1),)
+    passes = native_codec.ADAM7 if header.interlace else ((0, 0, 1, 1),)
     geometry = []   # (x0, y0, dx, dy, pass width, pass height, row bytes)
     for x0, y0, dx, dy in passes:
         pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
@@ -297,20 +235,19 @@ def _png_samples(data: bytes) -> tuple[np.ndarray, PngHeader, np.ndarray]:
         raise _fail(f"corrupt PNG data ({exc})") from None
     if len(raw) != expected:
         raise _fail("truncated PNG data")
-    raw = np.frombuffer(raw, np.uint8)
-    unfilter = host_unfilter()
-    if not header.interlace:
-        out = _unpack_samples(unfilter(raw, height, geometry[0][-1], bpp),
-                              width, samples, depth)
-    else:
-        out = np.empty((height, width, samples),
-                       np.uint16 if depth == 16 else np.uint8)
-        pos = 0
-        for x0, y0, dx, dy, pw, ph, row_bytes in geometry:
-            size = ph * (1 + row_bytes)
-            packed = unfilter(raw[pos:pos + size], ph, row_bytes, bpp)
-            out[y0::dy, x0::dx] = _unpack_samples(packed, pw, samples, depth)
-            pos += size
+    out = np.empty((height, width, samples),
+                   np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy, pw, ph, row_bytes in geometry:
+        size = ph * (1 + row_bytes)
+        try:
+            packed = native_codec.png_unfilter(
+                memoryview(raw)[pos:pos + size], ph, row_bytes, bpp)
+        except ValueError as exc:
+            raise _fail(str(exc)) from None
+        out[y0::dy, x0::dx] = native_codec.png_unpack(packed, pw, samples,
+                                                      depth)
+        pos += size
     if colour == 3:
         if int(out.max()) >= len(palette):
             raise _fail("palette index out of range")
@@ -364,29 +301,13 @@ def decode_png16(data: bytes) -> np.ndarray:
 
 
 def encode_png(img: np.ndarray) -> bytes:
-    """(H, W), (H, W, C) uint8 with C in 1-4 -> PNG bytes (filter type 1,
-    zlib level 1)."""
-    arr = np.ascontiguousarray(img, np.uint8)
-    if arr.ndim == 2:
-        arr = arr[:, :, None]
-    if arr.ndim != 3 or arr.shape[2] not in _COLOUR_TYPE or arr.size == 0:
+    """(H, W), (H, W, C) uint8 with C in 1-4 -> PNG bytes: the native
+    tier's `png_encode(img, 1)` (Sub filter, zlib level 1 with run-length
+    matching)."""
+    png = native_codec.png_encode(img, 1)
+    if png is None:
         raise ImageCodecError(f"Cannot encode an image of shape {img.shape}")
-    height, width, channels = arr.shape
-    rows = arr.reshape(height, width * channels)
-    lines = np.empty((height, width * channels + 1), np.uint8)
-    lines[:, 0] = 1
-    lines[:, 1:] = rows
-    lines[:, 1 + channels:] -= rows[:, :-channels]   # Sub, mod 256
-
-    def chunk(kind: bytes, payload: bytes) -> bytes:
-        return (struct.pack(">I", len(payload)) + kind + payload
-                + struct.pack(">I", zlib.crc32(kind + payload)))
-
-    ihdr = struct.pack(">IIBBBBB", width, height, 8, _COLOUR_TYPE[channels],
-                       0, 0, 0)
-    return (_PNG_SIGNATURE + chunk(b"IHDR", ihdr)
-            + chunk(b"IDAT", zlib.compress(lines.tobytes(), 1))
-            + chunk(b"IEND", b""))
+    return png
 
 
 # -- the native decoders, by magic bytes --------------------------------------
@@ -473,8 +394,20 @@ def _normalize_rgb(arr: np.ndarray) -> np.ndarray:
 
 
 def _png_chunks_neutral(raw: bytes) -> bool:
-    """True iff every chunk of ``raw`` (a valid PNG) is rendering-neutral."""
-    return all(kind in _PNG_NEUTRAL_CHUNKS for kind, _ in _chunks(raw))
+    """True iff every chunk of ``raw`` (a PNG) is rendering-neutral and its
+    CRC holds."""
+    try:
+        return all(kind in _PNG_NEUTRAL_CHUNKS for kind, _ in _chunks(raw))
+    except ImageCodecError:
+        return False
+
+
+def _leading_ihdr(raw: bytes) -> Optional[PngHeader]:
+    """The header of a PNG whose first chunk is IHDR, else None."""
+    if raw[12:16] != b"IHDR":
+        return None
+    width, height, depth, colour = struct.unpack_from(">IIBB", raw, 16)
+    return PngHeader(width, height, depth, colour, raw[28])
 
 
 def _jpeg_headers_neutral(raw: bytes) -> bool:
@@ -557,7 +490,11 @@ def decode_base64_image_ex(base64_str: str) -> tuple[np.ndarray, str | None]:
     from this decode by the IDCT's rounding), else None."""
     try:
         raw = _b64_bytes(base64_str)
-        arr, tier, png = _decode_raw(raw)
+        arr = native_codec.png_decode(raw)
+        if arr is not None:
+            tier, png = "native_png", _leading_ihdr(raw)
+        else:
+            arr, tier, png = _decode_raw(raw)
     except ImageCodecError:
         _count_decode("failed")
         raise

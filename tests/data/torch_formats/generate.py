@@ -9,8 +9,8 @@ header, Pillow and the JAX package):
 
 The reference is the JAX package's own codec, unedited: its native tier
 (Pillow switched off, `GIP_NATIVE_LIB` naming a library built here from
-`native/src`) for every format but PNG, and its Pillow tier for PNG, which
-is what the port's PNG codec follows.  The images are small and smooth so
+`native/src`), which is what it serves every format with, PNG included,
+since it tries `gip_png_decode` first.  The images are small and smooth so
 that the set stays under 100 KB.
 """
 
@@ -109,18 +109,13 @@ def _reference_lib(out_dir: str) -> str:
 def main() -> None:
     files = fixtures(np.random.default_rng(SEED))
     expected = {}
-    for name, data in files.items():
-        if name.endswith(".png"):
-            url = "data:image/png;base64," + base64.b64encode(data).decode()
-            expected[name] = jax_image.decode_base64_image(url)
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["GIP_NATIVE_LIB"] = _reference_lib(tmp)
         jax_native._LIB, jax_native._SEARCHED = None, False
         jax_image.PIL_AVAILABLE = False
         for name, data in files.items():
-            if not name.endswith(".png"):
-                url = "data:;base64," + base64.b64encode(data).decode()
-                expected[name] = jax_image.decode_base64_image(url)
+            url = "data:;base64," + base64.b64encode(data).decode()
+            expected[name] = jax_image.decode_base64_image(url)
     for name, data in files.items():
         (HERE / name).write_bytes(data)
     np.savez_compressed(HERE / "expected.npz", **expected)

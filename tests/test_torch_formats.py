@@ -97,6 +97,19 @@ def jax_native(monkeypatch, reference_lib, decoders):
     return jax_image
 
 
+def _native_served(request, data: bytes) -> np.ndarray:
+    """What the JAX package serves for a base64 upload of `data` through its
+    native tier, which it tries first, whatever tier the test has set."""
+    reference_lib = request.getfixturevalue("reference_lib")
+    with pytest.MonkeyPatch.context() as m:
+        m.setenv("GIP_NATIVE_LIB", reference_lib)
+        m.setattr(jax_native_codec, "_LIB", None)
+        m.setattr(jax_native_codec, "_SEARCHED", False)
+        m.setattr(jax_image, "PIL_AVAILABLE", False)
+        assert jax_native_codec.available()
+        return jax_image.decode_base64_image(_b64(data))
+
+
 def _b64(data: bytes, mime: str = "image/png") -> str:
     return f"data:{mime};base64," + base64.b64encode(data).decode()
 
@@ -117,10 +130,13 @@ def _photo(rng, h=241, w=317, c=3) -> np.ndarray:
     return np.clip(base + noise, 0, 255).astype(np.uint8)
 
 
-def _same(port, jax, data: bytes) -> np.ndarray:
-    """Both codecs' base64 decode and upload decode of `data` agree."""
+def _same(port, jax, data: bytes, served=None) -> np.ndarray:
+    """Both codecs' base64 decode and upload decode of `data` agree; with
+    `served`, the port's base64 decode equals it instead (where the JAX
+    package's native PNG tier, which it tries first, reduces otherwise than
+    its Pillow tier)."""
     got = port.decode_base64_image(_b64(data))
-    want = jax.decode_base64_image(_b64(data))
+    want = jax.decode_base64_image(_b64(data)) if served is None else served
     assert got.shape == want.shape and got.dtype == np.uint8
     np.testing.assert_array_equal(got, want)
     got_file, want_file = port.load_image_file(data), jax.load_image_file(data)
@@ -138,7 +154,8 @@ PNG_VARIANTS = ([(0, d) for d in (1, 2, 4, 8, 16)] + [(2, 8), (2, 16)]
 
 @pytest.mark.parametrize("interlace", [0, 1])
 @pytest.mark.parametrize("colour,depth", PNG_VARIANTS)
-def test_png_variant_matches_jax(rng, jax_pil, colour, depth, interlace):
+def test_png_variant_matches_jax(request, rng, jax_pil, colour, depth,
+                                 interlace):
     h, w = 13, 17
     samples = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[colour]
     values = rng.integers(0, 1 << depth, (h, w, samples))
@@ -146,7 +163,10 @@ def test_png_variant_matches_jax(rng, jax_pil, colour, depth, interlace):
     if colour == 3:
         palette = rng.integers(0, 256, (1 << depth, 3)).astype(np.uint8)
     data = _png_bytes(values, depth, colour, interlace, palette=palette)
-    got = _same(codec, jax_pil, data)
+    served = None
+    if (colour, depth) == (0, 16):   # the tiers reduce 16-bit grey otherwise
+        served = _native_served(request, data)
+    got = _same(codec, jax_pil, data, served)
     assert got.shape == (h, w, 3)
 
 
@@ -168,24 +188,32 @@ def test_png_adam7_small_images(rng, jax_pil, hw):
         _same(codec, jax_pil, _png_bytes(a, 8, 2, interlace=1)), a)
 
 
-def test_png_16bit_grey_rescales_by_its_maximum(jax_pil):
+def test_png_16bit_grey_rescales_by_its_maximum(request, jax_pil):
+    """The upload endpoint's loader rescales 16-bit grey by its maximum, as
+    the JAX package's Pillow tier does; a base64 upload keeps the high
+    byte, as its native PNG tier, tried first, does."""
     values = np.array([[0, 1000, 2000], [3000, 4000, 5000]])
-    got = _same(codec, jax_pil, _png_bytes(values, 16, 0))
+    data = _png_bytes(values, 16, 0)
+    _same(codec, jax_pil, data,
+          served=_native_served(request, data))
     want = (values.astype(np.float32) * np.float32(255 / 5000)).astype(np.uint8)
-    np.testing.assert_array_equal(got[..., 0], want)
+    np.testing.assert_array_equal(codec.load_image_file(data)[0][..., 0], want)
 
 
 @pytest.mark.parametrize("colour,depth,channels", [
     (0, 1, 3), (0, 2, 1), (0, 4, 1), (0, 8, 1), (0, 16, 3), (3, 4, 3), (4, 8, 3)])
-def test_png_upload_keeps_grey_where_pillow_does(rng, jax_pil, colour, depth,
-                                                  channels):
+def test_png_upload_keeps_grey_where_pillow_does(request, rng, jax_pil, colour,
+                                                  depth, channels):
     samples = 2 if colour == 4 else 1
     values = rng.integers(0, 1 << depth, (5, 6, samples))
     palette = rng.integers(0, 256, (16, 3)).astype(np.uint8) if colour == 3 else None
     data = _png_bytes(values, depth, colour, palette=palette)
     arr, w, h = codec.load_image_file(data)
     assert (h, w, arr.shape[2]) == (5, 6, channels)
-    _same(codec, jax_pil, data)
+    served = None
+    if (colour, depth) == (0, 16):   # the tiers reduce 16-bit grey otherwise
+        served = _native_served(request, data)
+    _same(codec, jax_pil, data, served)
 
 
 @pytest.mark.parametrize("colour,depth", PNG_VARIANTS)
@@ -455,8 +483,19 @@ def test_tier_keys_are_the_jax_native_keys_and_zlib_png(rng):
     before = codec.decode_tier_counts()
     codec.decode_base64_image(_b64(_png_bytes(rng.integers(0, 256, (3, 3, 3)), 8, 2)))
     after = codec.decode_tier_counts()
-    assert after["zlib_png"] == before["zlib_png"] + 1
-    assert after["native_png"] == before["native_png"]
+    assert after["native_png"] == before["native_png"] + 1
+    assert after["zlib_png"] == before["zlib_png"]
+    # A tRNS longer than the palette: the native tier refuses it (as
+    # gip_png_decode does), the zlib tier reads it.
+    palette = rng.integers(0, 256, (4, 3)).astype(np.uint8)
+    data = _png_bytes(rng.integers(0, 4, (3, 5)), 8, 3, palette=palette,
+                      trns=[1, 2, 3, 4, 5])
+    assert codec.native_codec.png_decode(data) is None
+    np.testing.assert_array_equal(codec.decode_base64_image(_b64(data)),
+                                  codec.decode_png(data)[..., :3])
+    last = codec.decode_tier_counts()
+    assert last["zlib_png"] == after["zlib_png"] + 1
+    assert last["native_png"] == after["native_png"]
 
 
 def test_a_failed_build_raises_with_the_compiler_output(monkeypatch, tmp_path):

@@ -611,7 +611,7 @@ def test_planar_cap_is_the_weight_table_cap():
     assert blur.GAUSS_MAX_RADIUS == (MAX_KERNEL_TAPS - 1) // 2
     # The planar kernels are the rows templates: blur.cu and sobel.cu build
     # them, and no other library does.
-    assert set(build.SOURCES) == {"blur", "sobel", "png_unfilter"}
+    assert set(build.SOURCES) == {"blur", "sobel"}
 
 
 # -- on the card ---------------------------------------------------------------

@@ -360,6 +360,7 @@ def test_info_endpoints_keep_the_client_keys(apps, path):
 
 def test_stats_counts_requests_launches_and_phases():
     app = create_app(FilterRuntime("cpu"))
+    before = app.dispatch(Request(method="GET", path="/api/stats"))[1]
     app.dispatch(Request(method="POST", path="/api/process",
                          json={"image": GOOD, "filter": "sobel", "level": 4}))
     status, stats = app.dispatch(Request(method="GET", path="/api/stats"))
@@ -371,7 +372,10 @@ def test_stats_counts_requests_launches_and_phases():
     assert phases["requests"] == 1
     assert all(phases[p] > 0 for p in ("decode", "run", "encode"))
     assert phases["profile"] == 0
-    assert stats["decode_tiers"]["zlib_png"] >= 1
+    # The PNG upload went through the native PNG tier, as in the JAX server.
+    tiers, was = stats["decode_tiers"], before["decode_tiers"]
+    assert tiers["native_png"] == was["native_png"] + 1
+    assert tiers["zlib_png"] == was["zlib_png"]
 
 
 def test_without_a_card_the_process_endpoints_answer_503():
