@@ -11,8 +11,9 @@ Phases, each of which fails the run on its own:
    limit and the toolchain;
 2. build: builds every library of the main path from the sources, one
    compiler a library, all started together: nvcc for the kernels, the
-   host C++ compiler for the PNG codec helper (ops/cuda/png_codec.cpp) and
-   the upload decoders of native/src;
+   host C++ compiler for the PNG codec helper (ops/cuda/png_codec.cpp),
+   the upload decoders of native/src and phase 10's load generator
+   (native/tools/loadgen.cpp);
 3. kernel vs plain: each of the eleven launchers against its plain torch
    version on the card, at small shapes, edge shapes and the full 2146x3239
    RGB image, gaussian at r in {1, 2, 3, 15, 31} and the rows gaussian
@@ -109,7 +110,20 @@ Phases, each of which fails the run on its own:
    10 checks PASS), a full-size process-all through it (answers decode to
    the API's pixels, `decode_tiers.native_png` counts every PNG upload),
    and `stop`, after which no process of it is alive and both ports are
-   free.
+   free;
+10. the verification tier: `tools/silicon_ci.py`, all four stages, in one
+   subprocess, each stage in a process of its own: the validation matrix
+   (every filter x level x channel count against the numpy oracle, the
+   level-4 gates, the rows Sobel against the planar one, shapes across the
+   kernels' tiles: `TOTAL FAILURES: 0`), the soak (N = 150 random shapes,
+   biased to the tile edges, and the planar kernels' routes: `SOAK DONE: 0
+   failures`), the speed-of-light report (`--check`: each hand kernel's ms,
+   % of its bound and the binding bound at 2146x3239x3, levels 1, 2 and 4)
+   and the served stack (the launcher, the client, loadgen on the built-in
+   request and on a full-size PNG, with `time_ms` under that load against
+   the same request alone); it prints each stage's seconds, the totals, the
+   sol table's hand-kernel rows, both loadgen lines, `time_ms` under load
+   and each stage's kernel launches, and fails if any stage failed.
 
 The line before the last is a JSON object `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`.  Any failure exits non-zero and prints no ok
@@ -157,6 +171,7 @@ from gpu_image_processing_tpu_torch.parallel.spatial import (
     make_sharded_filter, spatial_halo)
 from gpu_image_processing_tpu_torch.profiling.profiler import (
     PEAKS, capture_trace, profile_batch, profile_filter, short_kernel_name)
+from gpu_image_processing_tpu_torch.profiling.traffic import least_ms
 from gpu_image_processing_tpu_torch.runtime.device import describe
 from gpu_image_processing_tpu_torch.runtime.dispatch import FilterRuntime
 from gpu_image_processing_tpu_torch.server.app import create_app
@@ -196,7 +211,7 @@ BODY_CAP = 64 * 1024 * 1024
 # GHz); every kernel here builds with -fmad=false and rounds each multiply
 # and add on its own (__fmul_rn, __fadd_rn), as the bit-exact contract
 # requires, so each operation is one instruction: 132 x 128 x 1.98 GHz.
-HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_TENSOR_OPS_PER_S = PEAKS["NVIDIA H100 80GB HBM3"]
+H100 = PEAKS["NVIDIA H100 80GB HBM3"]
 # The upload fixtures (tests/data/torch_formats/generate.py) and the pixels
 # the JAX package decoded from them.
 FORMAT_FIXTURES = "tests/data/torch_formats"
@@ -358,32 +373,10 @@ def planar_launchers(dev: torch.device, radius: int, sigma: float,
 
 def bound(name: str, shape: tuple[int, ...], radius: int) -> tuple[float, str]:
     """(least time in ms, "bytes" or "operations") for one launch on
-    (..., H, W, C) uint8: each input byte read once and each output byte
-    written once, against the operations the function needs, at the peaks
-    above.  Operations per output element of each pass, 2r+1 taps:
-    weighted 2(2r+1) (a multiply and an add per tap); folded 3r+2 (r pair
-    sums, r+1 multiplies, r+1 adds); band 4(2r+1)+1 (two products and two
-    sums per tap, then hi + lo); box 4 at any radius (a running window sum
-    adds the incoming tap and subtracts the outgoing one, then the scale
-    and the rounding add, counted at the f32 rate), since the window sum is
-    exact in any order and needs no more.  Sobel per pixel: 5 for the grey value, 11 each
-    for gx and gy, 8 for the magnitude and rounding.  All at the float32
-    rate of one instruction an operation (F32_OPS_PER_S), except the band: its products are u8 pixels times bf16 weights,
-    exact in bf16, summed in f32, the band matmul that the TPU ran on its
-    matrix unit, which the card runs on its tensor cores."""
-    elems = int(np.prod(shape))
-    pixels = elems // shape[-1]
-    taps = 2 * radius + 1
-    per_pass = {"gaussian_rows": 2 * taps, "gaussian_folded_rows": 3 * radius + 2,
-                "gaussian_band_rows": 4 * taps + 1, "box_rows": 4,
-                "gaussian_planar": 2 * taps, "gaussian_folded_planar": 3 * radius + 2,
-                "box_planar": 4}
-    ops = (2 * per_pass[name] * elems if name in per_pass
-           else (5 + 11 + 11 + 8) * pixels)
-    rate = BF16_TENSOR_OPS_PER_S if name == "gaussian_band_rows" else F32_OPS_PER_S
-    bytes_ms = 2 * elems / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / rate * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    (..., H, W, C) uint8 at the peaks above: the package's model
+    (profiling/traffic.py::least_ms), each input byte read once and each
+    output byte written once against the operations the function needs."""
+    return least_ms(name, shape, radius, H100)
 
 
 def scene_image(rng: np.random.Generator) -> np.ndarray:
@@ -660,6 +653,8 @@ CLI_RUNS = [("scene_gaussian.png", "gaussian", 2), ("scene_box.ppm", "box", 2),
 CLI_KERNEL = {("gaussian", 2): "gaussian_rows", ("box", 2): "box_rows",
               ("sobel", 2): "sobel_rows", ("gaussian", 4): "gaussian_band_rows"}
 EXAMPLES = ("compose_filters", "profile_kernels", "sharded_batch", "wide_formats")
+#: Where phase 10 has the verification tier write its reports (gitignored).
+CI_OUT = os.path.join("silicon_out", "chip_smoke")
 
 
 def gif_bytes(frames: np.ndarray, palette: np.ndarray, delay_cs: int) -> bytes:
@@ -954,6 +949,55 @@ def host_entry_points(rt: FilterRuntime, card: str, scene: np.ndarray,
     print(f"host entry points phase: {time.perf_counter() - t9:.1f} s")
 
 
+def verification_tier(card: str) -> None:
+    """Phase 10: `tools/silicon_ci.py`, every stage, in one subprocess."""
+    t10 = time.perf_counter()
+    out_dir = os.path.join(ROOT, CI_OUT)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    proc = subprocess.run(
+        [sys.executable, "-m", "gpu_image_processing_tpu_torch.tools.silicon_ci",
+         "--device", "cuda", "--out-dir", out_dir], cwd=ROOT,
+        capture_output=True, text=True, timeout=900)
+    try:
+        with open(os.path.join(out_dir, "silicon_ci.json")) as f:
+            stages = json.load(f)["stages"]
+    except (OSError, ValueError):
+        stages = {}
+    require(set(stages) == {"validate", "soak", "sol", "serving"},
+            f"silicon_ci: exit {proc.returncode}, stages {sorted(stages)}\n"
+            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    print("verification stages (s): " + ", ".join(
+        f"{name} {st['seconds']:.1f} {'PASS' if st['ok'] else 'FAIL'}"
+        for name, st in stages.items()))
+    validation, soak = stages["validate"]["details"], stages["soak"]["details"]
+    print(f"validation: {len(validation.get('checks', []))} checks, TOTAL "
+          f"FAILURES: {validation.get('failures')}; soak: N = {soak.get('trials')}, "
+          + ", ".join(f"section {s['section']} {s['trials']} trials"
+                      for s in soak.get("sections", []))
+          + f", SOAK DONE: {soak.get('failures')} failures")
+    sol = stages["sol"]["details"]
+    for row in sol.get("rows", []):
+        for op in row["ops"]:
+            if op["kernel"]:
+                print(f"[{card}] sol {row['filter']} L{row['level']} "
+                      f"{op['kernel']}: {op['avg_ms']:.4f} ms x{op['launches']}, "
+                      f"{op['share_pct']:.1f}% of the call, "
+                      + (f"{op['pct_of_bound']:.1f}% of bound ({op['bound']}-bound; "
+                         f"bytes {op['sol_pct']:.1f}%, {op['ops_rate']} operations "
+                         f"{op['sol_pct_ops']:.1f}%)" if op.get("pct_of_bound")
+                         is not None else f"no % of bound ({op.get('sol_note')})"))
+    if sol.get("problems"):
+        print("sol problems: " + "; ".join(sol["problems"]))
+    serving = stages["serving"]
+    print("serving: " + serving["tail"].replace("\n", "\n  "))
+    for name, st in stages.items():
+        print(f"phase 10 {name} launches: {json.dumps(st['details'].get('launches'))}")
+    failed = [name for name, st in stages.items() if not st["ok"]]
+    require(proc.returncode == 0 and not failed,
+            f"silicon_ci: exit {proc.returncode}, failed stages {failed}:\n"
+            + "\n".join(f"{n}: {stages[n]['tail']}" for n in failed))
+    print(f"verification phase: {time.perf_counter() - t10:.1f} s")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -982,11 +1026,12 @@ def main() -> int:
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    build.build_all()
+    # With the load generator of phase 10's serving stage beside them.
+    build.build_all((*build.LIBRARIES, build.LOADGEN))
     print(f"build: {time.perf_counter() - t0:.1f} s for "
-          f"{', '.join(build.LIBRARIES)} (one compiler each, in parallel: "
-          f"nvcc for the kernels, the host C++ compiler for the PNG codec "
-          f"helper and the decoders); each: " + ", ".join(
+          f"{', '.join(build.LIBRARIES)} and {build.LOADGEN} (one compiler "
+          f"each, in parallel: nvcc for the kernels, the host C++ compiler "
+          f"for the PNG codec helper, the decoders and loadgen); each: " + ", ".join(
               f"{n} {t:.1f} s" for n, t in build.BUILD_SECONDS.items()))
     for name, log in build.BUILD_LOGS.items():
         for line in log.splitlines():
@@ -2147,6 +2192,9 @@ def main() -> int:
 
     # -- 9. host entry points at full size ----------------------------------
     host_entry_points(rt, card, scene, scene_png, rng)
+
+    # -- 10. the verification tier ------------------------------------------
+    verification_tier(card)
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
 
     # No single PyTorch call computes these functions (the u8 rounding

@@ -17,7 +17,10 @@ tier's scanline helper `png_codec.cpp` beside this module
 compiled where they stand into one library, `DECODERS`.  Both are built
 with the host C++ compiler (`CXX_FLAGS`), not nvcc, so that they build on
 any host with a C++ compiler, the card's or not.  They land in `_build/`
-beside the kernels, keyed the same way.
+beside the kernels, keyed the same way, as does one executable: the HTTP
+load generator of the serving checks (`tools/silicon_ci.py`),
+`native/tools/loadgen.cpp` compiled where it stands (`LOADGEN`,
+`build_loadgen`).
 
 A build failure raises with the compiler's stderr.  Nothing here falls back
 to another path.
@@ -51,6 +54,9 @@ SOURCES = ("blur", "sobel")
 HOST_SOURCES = ("png_codec",)
 #: Every library the port builds.
 LIBRARIES = (*SOURCES, *HOST_SOURCES, DECODERS)
+#: The load generator, an executable, and its source in the repository.
+LOADGEN = "loadgen"
+LOADGEN_SOURCE = NATIVE_DIR.parent / "tools" / "loadgen.cpp"
 
 #: Hopper only; `-fmad=false` keeps every multiply and add rounded apart
 #: (the kernels also use `_rn` intrinsics).  Never `--use_fast_math`.
@@ -63,6 +69,8 @@ NVCC_FLAGS = (
 #: The host libraries: plain C++17, no CUDA.  `--no-undefined` makes a missing
 #: symbol a build error, not a failure at load time.
 CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-Wl,--no-undefined")
+#: The load generator: plain C++17 with POSIX threads.
+EXE_FLAGS = ("-std=c++17", "-O2", "-pthread")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -112,6 +120,8 @@ def _inputs(name: str) -> tuple[tuple[str, ...], list[Path]]:
     """(flags, every file the library is built from) of library `name`."""
     if name == DECODERS:
         return CXX_FLAGS, [*DECODER_SOURCES, NATIVE_DIR / "gip_limits.h"]
+    if name == LOADGEN:
+        return EXE_FLAGS, [LOADGEN_SOURCE]
     if name in HOST_SOURCES:
         return CXX_FLAGS, [SOURCE_DIR / f"{name}.cpp"]
     return NVCC_FLAGS, [SOURCE_DIR / f"{name}.cu",
@@ -131,6 +141,8 @@ def _command(name: str, target: str) -> list[str]:
     if name == DECODERS:
         return [cxx_path(), *CXX_FLAGS, "-o", target,
                 *map(str, DECODER_SOURCES)]
+    if name == LOADGEN:
+        return [cxx_path(), *EXE_FLAGS, "-o", target, str(LOADGEN_SOURCE)]
     if name in HOST_SOURCES:
         return [cxx_path(), *CXX_FLAGS, "-o", target,
                 str(SOURCE_DIR / f"{name}.cpp")]
@@ -158,8 +170,10 @@ def _compile(name: str, target: Path) -> str:
 
 
 def _built(name: str) -> Path:
-    """The library of `<name>`, compiled now unless it already exists."""
-    target = BUILD_DIR / f"{name}-{_source_hash(name)}.so"
+    """The library (or executable) of `<name>`, compiled now unless it
+    already exists."""
+    suffix = "" if name == LOADGEN else ".so"
+    target = BUILD_DIR / f"{name}-{_source_hash(name)}{suffix}"
     if not target.exists():
         t0 = time.perf_counter()
         BUILD_LOGS[name] = _compile(name, target)
@@ -174,6 +188,13 @@ def build_all(names: tuple[str, ...] = LIBRARIES) -> None:
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         for _ in pool.map(_built, names):
             pass
+
+
+def build_loadgen() -> Path:
+    """The load generator's executable, built first if needed; raises with
+    the compiler's stderr if the build fails."""
+    with _LOCK:
+        return _built(LOADGEN)
 
 
 def load_host(name: str, signatures: dict[str, list]) -> ctypes.CDLL:

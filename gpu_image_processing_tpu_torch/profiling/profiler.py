@@ -52,6 +52,7 @@ import torch
 
 from ..core.params import normalize_level
 from ..runtime.dispatch import FilterRuntime
+from ..runtime.timing import exclusive
 from .traffic import BYTES_SOURCE, io_bytes, served_tensor_core_flops
 
 
@@ -169,8 +170,9 @@ def _measure(devices: tuple[torch.device, ...], run: Callable[[], Any],
     from torch.profiler import ProfilerActivity, profile
 
     # One session at a time: torch.profiler allows one in a process, and its
-    # trace holds the whole device's activity.
-    with _SESSION_LOCK:
+    # trace holds the whole device's activity, so no other request's device
+    # work may run meanwhile (runtime/timing.py::exclusive).
+    with _SESSION_LOCK, exclusive(devices):
         for device in devices:
             torch.cuda.synchronize(device)
             torch.cuda.reset_peak_memory_stats(device)

@@ -6,7 +6,12 @@ not a hardware counter: rows that use one are tagged
 ``bytes_source: "modeled"``.
 
 * `io_bytes`: the floor any implementation moves, the image read once and
-  written once a launch, as `chip_smoke.py::bound` counts it.
+  written once a launch.
+* `kernel_operations` and `least_ms`: the operations each hand kernel's
+  function needs, the rate they run at, and the least time a launch could
+  take, the larger of its bytes over the memory rate and its operations over
+  their rate (the bound beside every kernel time in `chip_smoke.py` and
+  `tools/sol_report.py`).
 * `served_tensor_core_flops`: the bf16 products the tensor cores issue for
   a request.  Only the level-4 gaussian from `GAUSS_MXU_MIN_RADIUS` up runs
   on them (`gaussian_band_rows`, `blur.cu::band_mma_rows`); the model
@@ -74,3 +79,62 @@ def served_tensor_core_flops(filter_name: str, level: int, height: int,
             or radius < GAUSS_MXU_MIN_RADIUS):
         return None
     return band_mma_flops(height, width, channels, radius, batch)
+
+
+#: Operations for each output element of one pass of a separable kernel at
+#: radius r, 2r + 1 taps: weighted 2(2r+1) (a multiply and an add a tap);
+#: folded 3r+2 (r pair sums, r+1 multiplies, r+1 adds); the band 4(2r+1)+1
+#: (two products and two sums a tap, then hi + lo); box 4 at any radius (a
+#: running window sum adds the incoming tap and subtracts the outgoing one,
+#: then the scale and the rounding add), since the window sum is exact in
+#: any order and needs no more.
+PASS_OPERATIONS = {
+    "gaussian_rows": lambda r: 2 * (2 * r + 1),
+    "gaussian_planar": lambda r: 2 * (2 * r + 1),
+    "gaussian_folded_rows": lambda r: 3 * r + 2,
+    "gaussian_folded_planar": lambda r: 3 * r + 2,
+    "gaussian_band_rows": lambda r: 4 * (2 * r + 1) + 1,
+    "box_rows": lambda r: 4,
+    "box_planar": lambda r: 4,
+}
+#: Sobel's operations a pixel: 5 for the grey value, 11 each for gx and gy,
+#: 8 for the magnitude and its rounding.
+SOBEL_PIXEL_OPERATIONS = 5 + 11 + 11 + 8
+SOBEL_KERNELS = ("sobel_rows", "sobel_f32_rows", "sobel_planar",
+                 "sobel_f32_planar")
+#: The one kernel whose products run on the tensor cores: u8 pixels times
+#: bf16 weights, exact in bf16, summed in f32, the band matmul the TPU ran
+#: on its matrix unit.  Every other kernel runs at the float32 rate of one
+#: instruction an operation (they build with -fmad=false).
+TENSOR_CORE_KERNELS = ("gaussian_band_rows",)
+
+
+def kernel_operations(name: str, shape: tuple[int, ...], radius: int) -> int:
+    """Operations hand kernel `name` needs for one launch on (..., H, W, C)
+    uint8: both passes of a blur over every element, or Sobel over every
+    pixel."""
+    elems = 1
+    for d in shape:
+        elems *= d
+    if name in SOBEL_KERNELS:
+        return SOBEL_PIXEL_OPERATIONS * (elems // shape[-1])
+    return 2 * PASS_OPERATIONS[name](radius) * elems
+
+
+def operations_rate(name: str, peaks) -> float:
+    """The rate, operations a second, `name`'s operations run at on a card
+    of `peaks` (profiling/profiler.py::DevicePeaks)."""
+    return (peaks.bf16_tensor_ops_per_s if name in TENSOR_CORE_KERNELS
+            else peaks.f32_ops_per_s)
+
+
+def least_ms(name: str, shape: tuple[int, ...], radius: int,
+             peaks) -> tuple[float, str]:
+    """(least time in ms, "bytes" or "operations") of one launch of hand
+    kernel `name` on (..., H, W, C) uint8 at `radius`: each input byte read
+    once and each output byte written once over the memory rate, against
+    `kernel_operations` over `operations_rate`, whichever is longer."""
+    bytes_ms = io_bytes(*shape) / peaks.hbm_bytes_per_s * 1e3
+    ops_ms = (kernel_operations(name, shape, radius)
+              / operations_rate(name, peaks) * 1e3)
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")

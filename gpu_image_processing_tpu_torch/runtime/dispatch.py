@@ -53,7 +53,7 @@ from ..ops.weights import bf16_split, gaussian_kernel_f32, weights_to_torch
 from ..parallel.mesh import make_mesh
 from ..parallel.spatial import make_sharded_filter, spatial_h_target
 from .device import resolve
-from .timing import timed
+from .timing import exclusive, timed
 
 Rows = torch.Tensor
 RowsFn = Callable[[Rows], Rows]
@@ -182,9 +182,10 @@ class FilterRuntime:
 
     def _timed(self, call: _Call) -> tuple[Any, float]:
         if call.key not in self._warm:
-            t0 = time.perf_counter()
-            call.run()
-            self._warm[call.key] = (time.perf_counter() - t0) * 1000.0
+            with exclusive(call.devices):
+                t0 = time.perf_counter()
+                call.run()
+                self._warm[call.key] = (time.perf_counter() - t0) * 1000.0
         out, ms, self._warm[call.key] = timed(
             call.run, call.devices, config.TIMING_REPS, self._warm[call.key])
         return out, ms
