@@ -40,9 +40,7 @@ Phases, each of which fails the run on its own:
    through FilterRuntime(cuda), with its kernels' launch counts read around
    that run; then a torch.profiler trace of the model's forward, which must
    list the rows kernel alone, and a Chrome trace of one API call
-   (`capture_trace`), which must show the gaussian kernel (both before the
-   server's profiled requests, after which traces kept only some of the
-   hand kernels' launches);
+   (`capture_trace`), which must show the gaussian kernel;
 5. server path: the REST server on 127.0.0.1 in a thread, driven with
    urllib at full size: /api/process-all and /api/process at level 4 on a
    PNG filtered row by row as common encoders do it; the same scene as a
@@ -123,7 +121,20 @@ Phases, each of which fails the run on its own:
    request and on a full-size PNG, with `time_ms` under that load against
    the same request alone); it prints each stage's seconds, the totals, the
    sol table's hand-kernel rows, both loadgen lines, `time_ms` under load
-   and each stage's kernel launches, and fails if any stage failed.
+   and each stage's kernel launches, and fails if any stage failed;
+11. the installed package: a wheel built offline from a copy of its inputs,
+   installed with `--target` and made read-only, run from a directory
+   outside the checkout with `XDG_CACHE_HOME` in a temporary directory that
+   holds the checkout's kernel libraries alone, and an nvcc on PATH that
+   fails: the image-file CLI on the scene's JPEG (gaussian level 2), whose
+   PNG must equal the checkout CLI's byte for byte; the launcher's `start
+   --no-frontend` and one /api/process-all of that JPEG, whose levels must
+   equal the checkout server's answer (phase 5), then `stop` (the
+   launcher's code in this process, by its PID file); a `start` with the
+   web UI, which must refuse naming `frontend/`; no nvcc may run, the
+   decoders and the PNG helper must be built from the install's own copies
+   under the checkout's names, and nothing may be written under the
+   install; it prints each step's seconds.
 
 The line before the last is a JSON object `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`.  Any failure exits non-zero and prints no ok
@@ -133,7 +144,9 @@ line, as does a host without CUDA or a directory without the package.
 from __future__ import annotations
 
 import base64
+import contextlib
 import ctypes
+import io
 import json
 import os
 import re
@@ -148,15 +161,14 @@ import time
 import urllib.error
 import urllib.request
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
-
 from torch import nn
 
 from gpu_image_processing_tpu_torch.api import filters as api
-from gpu_image_processing_tpu_torch.core import config
+from gpu_image_processing_tpu_torch.core import config, files
 from gpu_image_processing_tpu_torch.entry import dryrun_multichip, entry
 from gpu_image_processing_tpu_torch.models import (
     BoxBlur, GaussianBlur, SobelEdgeDetection)
@@ -170,7 +182,8 @@ from gpu_image_processing_tpu_torch.parallel.mesh import make_mesh
 from gpu_image_processing_tpu_torch.parallel.spatial import (
     make_sharded_filter, spatial_halo)
 from gpu_image_processing_tpu_torch.profiling.profiler import (
-    PEAKS, capture_trace, profile_batch, profile_filter, short_kernel_name)
+    PEAKS, PRIMER_KERNEL, PRIMERS, capture_trace, primers_kept, profile_batch,
+    profile_filter, short_kernel_name, traced)
 from gpu_image_processing_tpu_torch.profiling.traffic import least_ms
 from gpu_image_processing_tpu_torch.runtime.device import describe
 from gpu_image_processing_tpu_torch.runtime.dispatch import FilterRuntime
@@ -472,12 +485,12 @@ def reference_png_codec(work: str):
     built into `work` with the host C++ compiler and `-lz`, as a same-run
     yardstick for the port's tier; None (and why) where this host cannot
     build it.  Only the codec split reads it."""
-    src = build.NATIVE_DIR
+    src = "native/src"
     lib_path = os.path.join(work, "libgip_codec.so")
     proc = subprocess.run(
         [build.cxx_path(), "-std=c++17", "-O2", "-shared", "-fPIC", "-o",
-         lib_path, str(src / "gip_codec.cpp"), str(src / "gip_formats.cpp"),
-         "-lz"], capture_output=True, text=True)
+         lib_path, f"{src}/gip_codec.cpp", f"{src}/gip_formats.cpp", "-lz"],
+        capture_output=True, text=True)
     if proc.returncode != 0:
         return None, proc.stderr.strip().splitlines()[-1:]
     lib = ctypes.CDLL(lib_path)
@@ -999,6 +1012,200 @@ def verification_tier(card: str) -> None:
     print(f"verification phase: {time.perf_counter() - t10:.1f} s")
 
 
+# -- phase 11: the installed package ------------------------------------------
+
+#: What the wheel is built from: the two packages, the packaging files and
+#: the native sources it carries (setup.py).
+WHEEL_INPUTS = ("gpu_image_processing_tpu", "gpu_image_processing_tpu_torch",
+                "pyproject.toml", "setup.py", *files.CARRIED)
+#: Where the installed package finds what it builds from, and where it
+#: builds, as the install reports them.
+INSTALLED_PROBE = (
+    "import json, gpu_image_processing_tpu_torch as pkg\n"
+    "from gpu_image_processing_tpu_torch.core import files\n"
+    "from gpu_image_processing_tpu_torch.ops.cuda import build\n"
+    "print(json.dumps({'package': pkg.__file__, 'build_dir': str(build.BUILD_DIR),"
+    " 'carried': [str(files.repo_file(p)) for p in files.CARRIED]}))\n")
+
+
+def tree_files(root: str) -> dict[str, tuple[int, int]]:
+    """Each file under `root`: (size, modification time in ns)."""
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            st = os.stat(os.path.join(dirpath, name))
+            out[os.path.join(dirpath, name)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def installed_package(card: str, scene_jpeg: bytes,
+                      jpeg_answer: dict[int, str]) -> None:
+    """Phase 11: the port built into a wheel, installed read-only and run
+    from a directory outside the checkout on the card: the image-file CLI
+    and the launcher with one /api/process-all, against the checkout's
+    answers byte for byte; no nvcc, nothing written under the install."""
+    t11 = time.perf_counter()
+    steps: dict[str, float] = {}
+    base = tempfile.mkdtemp(prefix="gip_smoke_wheel_")
+    src, dist, target, work, cache, fake_bin = (
+        os.path.join(base, d) for d in ("src", "dist", "install", "work",
+                                        "cache", "bin"))
+    try:
+        # 11.1 The wheel, from a copy of its inputs (a copy of the repository
+        # without .git has no `git archive`), offline; its install, made
+        # read-only.
+        t = time.perf_counter()
+        for name in WHEEL_INPUTS:
+            if os.path.isdir(name):
+                shutil.copytree(name, os.path.join(src, name), ignore=(
+                    shutil.ignore_patterns("_build", "__pycache__")))
+            else:
+                os.makedirs(os.path.dirname(os.path.join(src, name)),
+                            exist_ok=True)
+                shutil.copy(name, os.path.join(src, name))
+        for what, cmd in (
+                ("wheel", ["wheel", "--no-deps", "--no-build-isolation",
+                           "--no-index", "-w", dist, src]),
+                ("install", ["install", "--no-deps", "--no-index", "--target",
+                             target])):
+            if what == "install":
+                cmd.append(os.path.join(dist, os.listdir(dist)[0]))
+            proc = subprocess.run([sys.executable, "-m", "pip", *cmd],
+                                  capture_output=True, text=True, timeout=300)
+            require(proc.returncode == 0, f"pip {what}: exit {proc.returncode}\n"
+                    f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+            steps[what] = time.perf_counter() - t
+            t = time.perf_counter()
+        subprocess.run(["chmod", "-R", "a-w", target], check=True)
+        installed = tree_files(target)
+        # 11.2 The cache holds the checkout's kernel libraries and nothing
+        # else; an nvcc first on PATH leaves a mark and fails.
+        cache_dir = os.path.join(cache, "gpu_image_processing_tpu_torch")
+        os.makedirs(cache_dir)
+        for name in build.SOURCES:
+            shutil.copy(build._built(name), cache_dir)
+        mark = os.path.join(base, "nvcc_ran")
+        os.makedirs(fake_bin)
+        with open(os.path.join(fake_bin, "nvcc"), "w") as f:
+            f.write(f'#!/bin/sh\necho "$0 $*" >> {mark}\nexit 1\n')
+        os.chmod(os.path.join(fake_bin, "nvcc"), 0o755)
+        os.makedirs(work)
+        env = {**os.environ, "PYTHONPATH": target, "XDG_CACHE_HOME": cache,
+               "PATH": fake_bin + os.pathsep + os.environ.get("PATH", "")}
+        jpeg = os.path.join(work, "scene.jpg")
+        with open(jpeg, "wb") as f:
+            f.write(scene_jpeg)
+        port, refused_port = free_port(), free_port()
+        serve_cli = [sys.executable, "-m", "gpu_image_processing_tpu_torch.tools.serve"]
+        serve_opts = ["--device", "cuda", "--host", "127.0.0.1", "--port",
+                      str(port), "--run-dir", os.path.join(work, "run"),
+                      "--timeout", "300"]
+        cli = [sys.executable, "-m", CLI, jpeg]
+        cli_opts = ["--filter", "gaussian", "--level", "2", "--sigma",
+                    str(MAIN_SIGMA), "--radius", str(MAIN_GAUSS_RADIUS),
+                    "--device", "cuda"]
+        # 11.3 Side by side: the installed CLI, the checkout's, the
+        # installed launcher's start, a start that must refuse, and the
+        # install's own account of its sources.
+        jobs = {
+            "cli": ([*cli, os.path.join(work, "installed.png"), *cli_opts], work, env),
+            "cli (checkout)": ([*cli, os.path.join(work, "checkout.png"), *cli_opts],
+                               ROOT, {**os.environ, "PYTHONPATH": ROOT}),
+            "start": ([*serve_cli, "start", "--no-frontend", *serve_opts], work, env),
+            "start with frontend": ([*serve_cli, "start", "--device", "cuda",
+                                     "--port", str(refused_port), "--run-dir",
+                                     os.path.join(work, "refused")], work, env),
+            "sources": ([sys.executable, "-c", INSTALLED_PROBE], work, env),
+        }
+        t = time.perf_counter()
+        procs = {name: subprocess.Popen(cmd, cwd=cwd, env=job_env,
+                                        stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True)
+                 for name, (cmd, cwd, job_env) in jobs.items()}
+
+        def finish(name: str) -> tuple[str, tuple[int, str, str]]:
+            out, err = procs[name].communicate(timeout=300)
+            steps[name] = time.perf_counter() - t
+            return name, (procs[name].returncode, out, err)
+
+        with ThreadPoolExecutor(len(procs)) as pool:
+            outputs = dict(pool.map(finish, procs))
+        failed = {n: o for n, o in outputs.items()
+                  if (o[0] != 0) != (n == "start with frontend")}
+        require(not failed, "installed package: " + "; ".join(
+            f"{n} exit {rc}\n{out[-1500:]}\n{err[-1500:]}"
+            for n, (rc, out, err) in failed.items()))
+        refusal = outputs["start with frontend"][2]
+        require("frontend/" in refusal and "--no-frontend" in refusal
+                and "Backend starting" not in outputs["start with frontend"][1],
+                f"start without --no-frontend did not refuse by name: {refusal}")
+        sources = json.loads(outputs["sources"][1])
+        require(sources["package"].startswith(target + os.sep)
+                and sources["build_dir"] == cache_dir
+                and all(p.startswith(os.path.join(target, "gpu_image_processing_tpu_torch",
+                                                  "_carried") + os.sep)
+                        for p in sources["carried"]),
+                f"the install builds from elsewhere: {sources}")
+        with open(os.path.join(work, "installed.png"), "rb") as f:
+            ours = f.read()
+        with open(os.path.join(work, "checkout.png"), "rb") as f:
+            theirs = f.read()
+        require(ours == theirs, f"the installed CLI wrote {len(ours)} bytes, not "
+                f"the checkout's {len(theirs)}")
+        # 11.4 One /api/process-all of the JPEG on the installed server,
+        # against the checkout server's answer (phase 5), then stop.
+        client = Client(f"http://127.0.0.1:{port}", card)
+        t = time.perf_counter()
+        try:
+            status, out = client.post(
+                "/api/process-all", {"image": "data:image/jpeg;base64,"
+                                     + base64.b64encode(scene_jpeg).decode(),
+                                     "filter": "gaussian", "sigma": MAIN_SIGMA,
+                                     "radius": MAIN_GAUSS_RADIUS},
+                "gaussian JPEG, the installed server")
+            steps["process-all"] = time.perf_counter() - t
+            require(status == 200, f"installed process-all: {status} {str(out)[:300]}")
+            for lv in (1, 2):
+                require(out["results"][f"level_{lv}"]["processed_image"]
+                        == jpeg_answer[lv],
+                        f"installed process-all level_{lv} differs from the "
+                        f"checkout server's answer")
+            launches = client.get("/api/stats")[1]["kernel_launches"]
+            require(launches.get("gaussian_rows", 0) > 0,
+                    f"the installed server launched no gaussian_rows: {launches}")
+        finally:
+            # In this process: its PID file names the installed backend.
+            t = time.perf_counter()
+            said = io.StringIO()
+            with contextlib.redirect_stdout(said):
+                stopped = serve.main(["stop", *serve_opts])
+            steps["stop"] = time.perf_counter() - t
+        require(stopped == 0
+                and serve.read_pid(os.path.join(work, "run"), serve.BACKEND) is None
+                and not serve.port_in_use(port),
+                f"installed stop: {said.getvalue()}")
+        # 11.5 No nvcc ran; the cache gained the host libraries, compiled
+        # from the install's copies under the checkout's names; nothing was
+        # written under the install.
+        require(not os.path.exists(mark), "phase 11 ran nvcc: "
+                + (open(mark).read() if os.path.exists(mark) else ""))
+        want = {build._built(name).name for name in build.LIBRARIES}
+        require(set(os.listdir(cache_dir)) == want,
+                f"the cache holds {sorted(os.listdir(cache_dir))}, not {sorted(want)}")
+        require(tree_files(target) == installed,
+                "phase 11 wrote under the install")
+    finally:
+        subprocess.run(["chmod", "-R", "u+w", base], check=False)
+        shutil.rmtree(base, ignore_errors=True)
+    print(f"[{card}] installed package: wheel {steps['wheel']:.1f} s, install "
+          f"{steps['install']:.1f} s, then side by side (s from their start): "
+          + ", ".join(f"{n} {steps[n]:.1f}" for n in jobs)
+          + f"; process-all {steps['process-all']:.1f} s, stop {steps['stop']:.1f} s; "
+          f"no nvcc, the CLI's PNG and the served levels byte-equal to the "
+          f"checkout's, nothing written under the install")
+    print(f"installed package phase: {time.perf_counter() - t11:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1280,7 +1487,8 @@ def main() -> int:
     # native tier for JPEG): any difference fails.
     cxx_version = subprocess.run([build.cxx_path(), "--version"], capture_output=True,
                                  text=True, check=True).stdout.splitlines()[0]
-    print(f"decoder library: built from {', '.join(p.name for p in build.DECODER_SOURCES)} "
+    decoder_sources = [p for p in files.CARRIED if p.endswith(".cpp")]
+    print(f"decoder library: built from {', '.join(decoder_sources)} "
           f"by {cxx_version} in {build.BUILD_SECONDS.get(build.DECODERS, 0.0):.1f} s "
           f"(phase 2, beside nvcc)")
     expected = np.load(f"{FORMAT_FIXTURES}/expected.npz")
@@ -1357,20 +1565,20 @@ def main() -> int:
           f"sobel L2 vs plain maxdiff {sd.max()} fraction {(sd > 0).mean():.2e}")
 
     # The model's forward launches the rows kernel alone: no permute, no
-    # copy of its table.  Traced here, before the server's profiled
-    # requests: later in the process torch.profiler's traces kept only some
-    # of the hand kernels' launches (PERF.md, open questions).  Then a
-    # Chrome trace of one API call (`capture_trace`).
+    # copy of its table.  Then a Chrome trace of one API call
+    # (`capture_trace`).
     image_t = torch.from_numpy(image).to(dev)
     model = GaussianBlur(MAIN_SIGMA, MAIN_GAUSS_RADIUS, 2).to(dev)
     model(image_t)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with traced([dev]) as prof:
         model(image_t)
-        torch.cuda.synchronize()
     forward_kernels = sorted({e.key for e in prof.key_averages()
-                              if getattr(e, "device_time_total", 0) > 0})
-    print(f"profiler: GaussianBlur(level=2) forward -> {forward_kernels}")
+                              if getattr(e, "device_time_total", 0) > 0
+                              and PRIMER_KERNEL not in e.key})
+    print(f"profiler: GaussianBlur(level=2) forward -> {forward_kernels} "
+          f"(the session's primers kept: {primers_kept(prof.key_averages())} of "
+          f"{PRIMERS})")
     require(forward_kernels and all("gauss_window_rows" in k for k in forward_kernels),
             f"the forward launches more than the rows kernel: {forward_kernels}")
     trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
@@ -1472,6 +1680,9 @@ def main() -> int:
                     f"process-all JPEG {f}: the original is not the upload passed through")
             for lv in (1, 2):
                 served_jpeg[(f, lv)] = pixels(out["results"][f"level_{lv}"]["processed_image"])
+            if f == "gaussian":   # phase 11's answer to match
+                jpeg_answer = {lv: out["results"][f"level_{lv}"]["processed_image"]
+                               for lv in (1, 2)}
         for lv in (1, 2, 4):
             status, out = client.post(
                 "/api/process", {"image": jpeg_b64, "filter": "gaussian", "level": lv,
@@ -1592,7 +1803,9 @@ def main() -> int:
         kernel_rows = deep["kernel_durations_ms"]
         counts = {k: v["count"] for k, v in deep["trace_kernel_stats"].items()}
         print(f"[{card}] profile {f} L{lv}: time_ms {m['time_ms']:.4f}, "
-              f"ncu_profiled_time_ms {m['ncu_profiled_time_ms']:.4f}, DRAM "
+              f"ncu_profiled_time_ms {m['ncu_profiled_time_ms']:.4f}, "
+              f"sessions {deep['config']['Trace Sessions']}, primers kept "
+              f"{deep['config']['Trace Primers Kept']}, DRAM "
               f"{m.get('dram_throughput_pct', float('nan')):.1f}% of peak, peak "
               f"device memory {m.get('peak_device_memory_bytes', 0) / 1e6:.1f} MB, "
               f"{len(kernel_rows)} device rows, the first: " + "; ".join(
@@ -1804,7 +2017,7 @@ def main() -> int:
           + " against the API's rows and the plain versions")
     del halo, halo_imgs, sobel_keep, want_planes
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with traced([dev]) as prof:
         for lv in (2, 4):
             for radius in (FOLDED_RADIUS, MAIN_GAUSS_RADIUS):
                 rt.run("gaussian", scene, level=lv, sigma=MAIN_SIGMA, radius=radius)
@@ -1823,9 +2036,9 @@ def main() -> int:
         planar_api.sobel_planar_batch(image_t[None], 1, zero_rows=False)
         rt.run("box", scene, level=2, radius=15)    # box_rows's running sums
         rt.run("box", scene, level=2, radius=100)   # box_rows's two-launch route
-        torch.cuda.synchronize()
     device_kernels = [e.key for e in prof.key_averages()
-                      if getattr(e, "device_time_total", 0) > 0]
+                      if getattr(e, "device_time_total", 0) > 0
+                      and PRIMER_KERNEL not in e.key]
     for name, spec in KERNELS.items():
         for sub in spec["profiler_names"]:
             hits = [k for k in device_kernels if sub in k]
@@ -2133,9 +2346,7 @@ def main() -> int:
         require(np.array_equal(out, single_batch[key][0]),
                 f"mesh batch {key}: differs from the one-device batch")
         require(metrics.fps > 0, f"mesh batch {key}: fps")
-    # The trace need not list every shard's launch (late in a process
-    # traces drop some hand-kernel launches, PERF.md): the kernel's name and
-    # a profiled time are required.
+    # Each profile held every shard's launches (profiler.check_launches).
     for what, path, time_ms in (("batch", "batch(dp=4)", mesh_batch[("gaussian", 2)][1].time_ms),
                                 ("spatial", "spatial(sp=4)", served[("gaussian", 2)][1].time_ms)):
         got_path = deep[what]["config"]["Serving Path"]
@@ -2172,14 +2383,14 @@ def main() -> int:
               f"(single-device kernel {times[kernel_name][0]:.4f} ms), halo "
               f"{2 * halo * w * c} bytes a boundary, 3 boundaries")
         # Where the step's time goes: the trace's device rows, ms a step.
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with traced([dev]) as prof:
             for _ in range(5):
                 step.step(blocks, *args)
-            torch.cuda.synchronize()
         rows_ms = sorted(((e.device_time_total / 1000.0 / 5, e.count / 5,
                            short_kernel_name(e.key)) for e in prof.key_averages()
                           if e.device_type == torch.autograd.DeviceType.CUDA
-                          and e.device_time_total > 0), reverse=True)
+                          and e.device_time_total > 0
+                          and PRIMER_KERNEL not in e.key), reverse=True)
         print(f"[{card}] sharded {f} L2 step trace (ms a step, launches a step): "
               + "; ".join(f"{name} {ms:.4f} ({n:g})" for ms, n, name in rows_ms))
     for key, (out, metrics) in mesh_batch.items():
@@ -2195,6 +2406,9 @@ def main() -> int:
 
     # -- 10. the verification tier ------------------------------------------
     verification_tier(card)
+
+    # -- 11. the installed package ------------------------------------------
+    installed_package(card, scene_jpeg, jpeg_answer)
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
 
     # No single PyTorch call computes these functions (the u8 rounding

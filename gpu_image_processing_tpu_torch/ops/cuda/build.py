@@ -2,10 +2,14 @@
 
 Each `<name>.cu` beside this module is compiled on first use into a shared
 library with a plain C interface, for Hopper only
-(`-gencode arch=compute_90a,code=sm_90a`).  The library lands in `_build/`
-beside the sources (listed in `.gitignore`) under a name keyed by a hash of
-the sources, the headers and the flags, so an edited source rebuilds and an
-unchanged one loads at once.
+(`-gencode arch=compute_90a,code=sm_90a`).  The library lands in
+`BUILD_DIR` under a name keyed by a hash of the sources, the headers and
+the flags (their contents, not their paths), so an edited source rebuilds,
+an unchanged one loads at once, and a checkout and an installed package
+agree on every name.  `BUILD_DIR` is `_build/` beside the sources (listed in
+`.gitignore`) where this process may write there, as in a checkout; else,
+as in a read-only install, `gpu_image_processing_tpu_torch/` in the user's
+cache directory (`$XDG_CACHE_HOME`, by default `~/.cache`).
 
 The launch functions take `tensor.data_ptr()`, sizes and PyTorch's current
 stream as plain integers, launch on that stream without synchronising, and
@@ -14,16 +18,17 @@ The codec's libraries (utils/native_codec.py) are host code: the PNG
 tier's scanline helper `png_codec.cpp` beside this module
 (`HOST_SOURCES`), and the image decoders `native/src/gip_jpeg.cpp` and
 `native/src/gip_formats.cpp`, which need only standard headers and are
-compiled where they stand into one library, `DECODERS`.  Both are built
-with the host C++ compiler (`CXX_FLAGS`), not nvcc, so that they build on
-any host with a C++ compiler, the card's or not.  They land in `_build/`
-beside the kernels, keyed the same way, as does one executable: the HTTP
-load generator of the serving checks (`tools/silicon_ci.py`),
-`native/tools/loadgen.cpp` compiled where it stands (`LOADGEN`,
-`build_loadgen`).
+compiled where they stand into one library, `DECODERS`: in a checkout at
+its root, in an installed package from the copies it carries
+(core/files.py).  Both are built with the host C++ compiler (`CXX_FLAGS`),
+not nvcc, so that they build on any host with a C++ compiler, the card's
+or not.  They land in `BUILD_DIR` beside the kernels, keyed the same way,
+as does one executable: the HTTP load generator of the serving checks
+(`tools/silicon_ci.py`), `native/tools/loadgen.cpp` compiled where it
+stands (`LOADGEN`, `build_loadgen`), in a checkout only.
 
-A build failure raises with the compiler's stderr.  Nothing here falls back
-to another path.
+A build failure raises with the compiler's stderr, a missing source with
+its name.  Nothing here falls back to another path.
 """
 
 from __future__ import annotations
@@ -41,13 +46,29 @@ from pathlib import Path
 
 import torch
 
+from ...core.files import CARRIED, repo_file
+
 SOURCE_DIR = Path(__file__).resolve().parent
-BUILD_DIR = SOURCE_DIR / "_build"
-#: The library of the upload decoders, and its sources in the repository's
-#: `native/src` (the JAX package's C++ codec tier, compiled as it stands).
+
+
+def _build_dir() -> Path:
+    """`_build/` beside the sources where this process may write there, else
+    the package's directory in the user's cache."""
+    local = SOURCE_DIR / "_build"
+    probe = local if local.is_dir() else SOURCE_DIR
+    # Root may write anywhere; a directory whose mode lets no one write (an
+    # install made read-only) counts as read-only for root too.
+    if os.access(probe, os.W_OK) and probe.stat().st_mode & 0o222:
+        return local
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.expanduser("~/.cache")
+    return Path(cache) / "gpu_image_processing_tpu_torch"
+
+
+BUILD_DIR = _build_dir()
+#: The library of the upload decoders, built from `CARRIED`: the JAX
+#: package's C++ codec tier in `native/src` (two sources and the header they
+#: include), compiled as it stands.
 DECODERS = "gip_decoders"
-NATIVE_DIR = SOURCE_DIR.parents[2] / "native" / "src"
-DECODER_SOURCES = (NATIVE_DIR / "gip_jpeg.cpp", NATIVE_DIR / "gip_formats.cpp")
 #: The libraries built by nvcc: the kernels.
 SOURCES = ("blur", "sobel")
 #: The host helpers beside this module (`<name>.cpp`), built by CXX_FLAGS.
@@ -56,7 +77,7 @@ HOST_SOURCES = ("png_codec",)
 LIBRARIES = (*SOURCES, *HOST_SOURCES, DECODERS)
 #: The load generator, an executable, and its source in the repository.
 LOADGEN = "loadgen"
-LOADGEN_SOURCE = NATIVE_DIR.parent / "tools" / "loadgen.cpp"
+LOADGEN_SOURCE = "native/tools/loadgen.cpp"
 
 #: Hopper only; `-fmad=false` keeps every multiply and add rounded apart
 #: (the kernels also use `_rn` intrinsics).  Never `--use_fast_math`.
@@ -116,12 +137,21 @@ def cxx_path() -> str:
     raise RuntimeError("no C++ compiler (c++ or g++) on PATH")
 
 
+def _repo_sources(name: str) -> list[Path]:
+    """The repository files outside the package that `name` builds from."""
+    if name == DECODERS:
+        return [repo_file(p, "the upload decoders build from it")
+                for p in CARRIED]
+    return [repo_file(LOADGEN_SOURCE, "the load generator of the serving "
+                      "checks (tools/silicon_ci.py) builds from it")]
+
+
 def _inputs(name: str) -> tuple[tuple[str, ...], list[Path]]:
     """(flags, every file the library is built from) of library `name`."""
     if name == DECODERS:
-        return CXX_FLAGS, [*DECODER_SOURCES, NATIVE_DIR / "gip_limits.h"]
+        return CXX_FLAGS, _repo_sources(name)
     if name == LOADGEN:
-        return EXE_FLAGS, [LOADGEN_SOURCE]
+        return EXE_FLAGS, _repo_sources(name)
     if name in HOST_SOURCES:
         return CXX_FLAGS, [SOURCE_DIR / f"{name}.cpp"]
     return NVCC_FLAGS, [SOURCE_DIR / f"{name}.cu",
@@ -140,9 +170,10 @@ def _source_hash(name: str) -> str:
 def _command(name: str, target: str) -> list[str]:
     if name == DECODERS:
         return [cxx_path(), *CXX_FLAGS, "-o", target,
-                *map(str, DECODER_SOURCES)]
+                *(str(p) for p in _repo_sources(name) if p.suffix == ".cpp")]
     if name == LOADGEN:
-        return [cxx_path(), *EXE_FLAGS, "-o", target, str(LOADGEN_SOURCE)]
+        return [cxx_path(), *EXE_FLAGS, "-o", target,
+                *map(str, _repo_sources(name))]
     if name in HOST_SOURCES:
         return [cxx_path(), *CXX_FLAGS, "-o", target,
                 str(SOURCE_DIR / f"{name}.cpp")]

@@ -24,7 +24,14 @@ The duration tiers:
   call, ``Serving Path`` ``spatial(sp=n)`` or ``batch(dp=n)``) on the
   image already on the card; each device row (a kernel, or a copy or fill
   if the function issued one) becomes an entry of `kernel_durations_ms`
-  under its own name, its device time a call (`_trace_kernels`);
+  under its own name, its device time over the runs (`_trace_kernels`).
+  A session (`traced`) first spends device records on `PRIMERS` spins and
+  `SESSION_LEAD_S` of host time, which no table rates: torch.profiler lost
+  a session's first device records, by count in the threaded server and by
+  time elsewhere (PERF.md, section 7).  The trace must hold every
+  hand-kernel launch that `ops.cuda.LAUNCHES` counted during it
+  (`check_launches`); else the profile opens another session, and after
+  `SESSION_ATTEMPTS` it raises, naming both counts;
 * on the CPU, ``wall_timing``: the host clock around the same runs, which
   serve the kernels' plain versions.
 
@@ -42,15 +49,18 @@ and the CPU, get none.
 
 from __future__ import annotations
 
+import contextlib
 import tempfile
 import threading
 import time
-from typing import Any, Callable, NamedTuple, Optional
+from collections import Counter
+from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..core.params import normalize_level
+from ..ops.cuda import LAUNCHES
 from ..runtime.dispatch import FilterRuntime
 from ..runtime.timing import exclusive
 from .traffic import BYTES_SOURCE, io_bytes, served_tensor_core_flops
@@ -74,11 +84,27 @@ PEAKS = {
     "NVIDIA H100 80GB HBM3": DevicePeaks(3.35e12, 132 * 128 * 1.98e9, 989e12),
 }
 
-#: Runs of the served function inside one profile.  On the card, late in a
-#: long-lived process, a trace kept only some launches of the hand kernels
-#: (2 of 4), so a profile takes ten and rates each row by its launches.
+#: Runs of the served function inside one profile.
 PROFILE_REPS = 10
+#: Spins (`torch.cuda._sleep`, kernel `PRIMER_KERNEL`) that open every
+#: session, then host time before its work.  torch.profiler drops the device
+#: records it dates before its session's window (Kineto's "Out-of-range"),
+#: and on an H100 a session's first records were so dated: those of its
+#: first milliseconds (1 session in 40 to 160 without the lead), or its
+#: first 4 whatever the host time (the threaded server's sessions); PERF.md,
+#: section 7.
+PRIMERS = 16
+PRIMER_KERNEL = "spin_kernel"
+SESSION_LEAD_S = 0.02
+#: Sessions a profile opens at most while its trace misses a launch.
+SESSION_ATTEMPTS = 3
 _SESSION_LOCK = threading.Lock()
+#: The hand kernels as a trace names them (ops/cuda/*.cu).  Each launch
+#: that `ops.cuda.LAUNCHES` counts launches one of them; `box_rows` past
+#: r = 64 launches `box_wide_v` after `box_wide_h`.
+HAND_KERNELS = ("gauss_window_rows", "box_window_rows", "box_wide_h",
+                "band_mma_rows", "sobel_tile_rows")
+SECOND_KERNEL = ("box_wide_v", "box_wide_h")
 
 OCCUPANCY_NOTE = ("not measured: achieved occupancy is an Nsight Compute "
                   "counter, which torch.profiler does not read")
@@ -138,37 +164,115 @@ def short_kernel_name(full: str) -> str:
     return name if len(name) <= 70 else name[:67] + "..."
 
 
-def _trace_kernels(prof, reps: int) -> dict[str, dict[str, float]]:
+def _trace_kernels(averages, reps: int) -> dict[str, dict[str, float]]:
     """{name: {count, total_ms, avg_ms, per_call_ms}} of every device row of
-    a trace of `reps` calls.  A row's time a call is its mean launch time
-    times its launches a call (count / reps, rounded), so a launch the
-    trace missed does not shrink it."""
+    a trace's `key_averages()` of `reps` calls but the session's primers; a
+    row's time a call is its device time over the calls."""
     rows = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    for e in averages:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or PRIMER_KERNEL in e.key):
             continue
         total_ms = e.device_time_total / 1000.0
         if total_ms > 0:
-            avg_ms = total_ms / max(e.count, 1)
             rows[e.key] = {"count": e.count, "total_ms": total_ms,
-                           "avg_ms": avg_ms,
-                           "per_call_ms": avg_ms * max(1, round(e.count / reps))}
+                           "avg_ms": total_ms / max(e.count, 1),
+                           "per_call_ms": total_ms / reps}
     return rows
 
 
+def traced_launches(kernels: dict[str, dict[str, float]]) -> Counter:
+    """Launches of each hand kernel (`HAND_KERNELS`, `box_wide_v`) in the
+    trace rows `kernels` (`_trace_kernels`)."""
+    counts: Counter = Counter()
+    for name, row in kernels.items():
+        base = short_kernel_name(name).split("<")[0]
+        if base in (*HAND_KERNELS, SECOND_KERNEL[0]):
+            counts[base] += row["count"]
+    return counts
+
+
+class LostLaunches(RuntimeError):
+    """A trace that misses launches of the hand kernels."""
+
+
+def check_launches(kernels: dict[str, dict[str, float]], made: int) -> None:
+    """Raise unless the trace rows `kernels` hold every hand-kernel launch
+    of the session, `made` as `ops.cuda.LAUNCHES` counted them: a table
+    that misses launches is not rated."""
+    counts = traced_launches(kernels)
+    traced = sum(n for k, n in counts.items() if k != SECOND_KERNEL[0])
+    second, first = (counts[k] for k in SECOND_KERNEL)
+    if traced != made or second != first:
+        raise LostLaunches(
+            f"the trace holds {traced} hand-kernel launches where {made} were "
+            f"made (ops.cuda.LAUNCHES; by kernel: {dict(counts)}): not rated")
+
+
+def primers_kept(averages) -> int:
+    """The primers of a `traced` session that its trace's `key_averages()`
+    kept."""
+    return sum(e.count for e in averages
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and PRIMER_KERNEL in e.key)
+
+
+@contextlib.contextmanager
+def traced(devices: Sequence[torch.device]):
+    """A torch.profiler session with CPU and CUDA activity that keeps the
+    block's device work: it opens with `PRIMERS` spins on each device's
+    current stream and `SESSION_LEAD_S` of host time, and closes once the
+    devices have finished the block.  Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for device in devices:
+            with torch.cuda.device(device):
+                for _ in range(PRIMERS):
+                    torch.cuda._sleep(1)
+        time.sleep(SESSION_LEAD_S)
+        yield prof
+        for device in devices:
+            torch.cuda.synchronize(device)
+
+
 def _measure(devices: tuple[torch.device, ...], run: Callable[[], Any],
-             reps: int) -> tuple[list[float], Optional[dict], Optional[int]]:
-    """(times_ms, trace rows, peak device bytes) of `reps` runs of `run`,
-    whose first call has been made, on `devices` (one, or a mesh's)."""
+             reps: int) -> tuple[list[float], Optional[dict], Optional[int],
+                                 dict[str, Any]]:
+    """(times_ms, trace rows, peak device bytes, the trace's account for
+    ``config``) of `reps` runs of `run`, whose first call has been made, on
+    `devices` (one, or a mesh's).  On the card, a session whose trace
+    missed a launch is opened again, `SESSION_ATTEMPTS` times at most;
+    then the last one's `LostLaunches` is raised."""
     if devices[0].type != "cuda":
         times = []
         for _ in range(reps):
             t0 = time.perf_counter()
             run()
             times.append((time.perf_counter() - t0) * 1000.0)
-        return times, None, None
-    from torch.profiler import ProfilerActivity, profile
+        return times, None, None, {}
+    for attempt in range(1, SESSION_ATTEMPTS + 1):
+        kernels, made, peak, primers = _session(devices, run, reps)
+        try:
+            check_launches(kernels, made)
+            break
+        except LostLaunches as exc:
+            if attempt == SESSION_ATTEMPTS:
+                raise LostLaunches(f"{exc}, in each of {attempt} sessions")
+    if not kernels:
+        raise RuntimeError("torch.profiler recorded no device activity on "
+                           f"{', '.join(map(str, devices))}")
+    per_call = sum(k["per_call_ms"] for k in kernels.values())
+    account = {"Trace Sessions": attempt,
+               "Trace Primers Kept": f"{primers} of {PRIMERS * len(devices)}"}
+    return [per_call] * reps, kernels, peak, account
 
+
+def _session(devices: tuple[torch.device, ...], run: Callable[[], Any],
+             reps: int) -> tuple[dict, int, int, int]:
+    """(trace rows, hand-kernel launches made, peak device bytes, primers
+    kept) of one traced session of `reps` runs of `run` on the cards."""
     # One session at a time: torch.profiler allows one in a process, and its
     # trace holds the whole device's activity, so no other request's device
     # work may run meanwhile (runtime/timing.py::exclusive).
@@ -176,19 +280,15 @@ def _measure(devices: tuple[torch.device, ...], run: Callable[[], Any],
         for device in devices:
             torch.cuda.synchronize(device)
             torch.cuda.reset_peak_memory_stats(device)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        made = sum(LAUNCHES.values())
+        with traced(devices) as prof:
             for _ in range(reps):
                 run()
-            for device in devices:
-                torch.cuda.synchronize(device)
+        made = sum(LAUNCHES.values()) - made
         peak = max(torch.cuda.max_memory_allocated(d) for d in devices)
-    kernels = _trace_kernels(prof, reps)
-    if not kernels:
-        raise RuntimeError("torch.profiler recorded no device activity on "
-                           f"{', '.join(map(str, devices))}")
-    per_call = sum(k["per_call_ms"] for k in kernels.values())
-    return [per_call] * reps, kernels, peak
+    averages = prof.key_averages()
+    return (_trace_kernels(averages, reps), made, peak,
+            primers_kept(averages))
 
 
 def _assemble(*, device: torch.device, times_ms: list[float],
@@ -279,12 +379,18 @@ def _profile(runtime: FilterRuntime, images: np.ndarray, filter_type: str,
         call = runtime._batch_call(filter_type, images, level, sigma, radius)
     else:
         call = runtime._single_call(filter_type, images, level, sigma, radius)
-    call.run()   # builds and warms, untimed
-    times, kernels, peak = _measure(call.devices, call.run, PROFILE_REPS)
+    # Builds and warms, untimed, holding the card as the runtime's own first
+    # run does (runtime/dispatch.py::_timed): never inside another request's
+    # bracket.  Released before _measure, which takes the session lock first.
+    with exclusive(call.devices):
+        call.run()
+    times, kernels, peak, account = _measure(call.devices, call.run,
+                                             PROFILE_REPS)
     flops = served_tensor_core_flops(filter_type, call.level, height, width,
                                      channels, radius, batch or 1)
     extra = ({"Serving Path": call.path, "Batch Size": batch} if batch
              else {"Serving Path": call.path})
+    extra.update(account)
     return _assemble(device=call.devices[0], times_ms=times, kernels=kernels,
                      peak_bytes=peak, reps=PROFILE_REPS, label=label,
                      shape=tuple(images.shape), tensor_flops=flops,
@@ -322,14 +428,10 @@ def capture_trace(fn: Callable[[], Any], device: torch.device | str,
     from torch.profiler import ProfilerActivity, profile
 
     device = torch.device(device)
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
     out_dir = trace_dir or tempfile.mkdtemp(prefix="gip_torch_trace_")
-    with _SESSION_LOCK, profile(activities=activities) as prof:
+    with _SESSION_LOCK, (traced([device]) if device.type == "cuda" else
+                         profile(activities=[ProfilerActivity.CPU])) as prof:
         fn()
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
     prof.export_chrome_trace(f"{out_dir}/trace.json")
     return out_dir
 

@@ -5,8 +5,9 @@ Usage, from the root of the repository:
     python3 gpu_image_processing_tpu_torch/tools/kernel_times.py \
         [--root DIR] [--ref DIR]
 
-imports `gpu_image_processing_tpu_torch` from DIR (default: the checkout
-this file lies in), builds its kernels, and times each case below on a
+imports `gpu_image_processing_tpu_torch` from DIR (default: the directory
+that holds this file's package, a checkout's root or an installation),
+builds its kernels, and times each case below on a
 seeded 2146x3239 RGB image with CUDA events: the mean of ITERS back-to-back
 launches, right after WARM untimed ones (a card that idled, as while a
 library builds, raises its clocks only under load), the least of REPEATS
@@ -74,7 +75,12 @@ MODULES = ("ops.cuda.blur", "ops.cuda.sobel", "ops.weights",
 
 def load_package(root: str, name: str):
     """The `MODULES` of the package under `root`, imported as the package
-    `name`."""
+    `name`; raises naming the package's `__init__.py` if `root` has none."""
+    init = Path(root) / PACKAGE / "__init__.py"
+    if not init.is_file():
+        raise FileNotFoundError(
+            f"{init} not found: --root and --ref name a directory that holds "
+            f"{PACKAGE}/, as the root of a checkout does")
     if name == PACKAGE:
         sys.path.insert(0, root)
     else:
@@ -181,7 +187,7 @@ def planar_cases(weights, blur_planar, sobel_planar, models, planes) -> dict:
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
-                        help="checkout whose package is timed")
+                        help="directory whose package is timed")
     parser.add_argument("--ref", default=None,
                         help="a second checkout, timed in the same process")
     args = parser.parse_args(argv)

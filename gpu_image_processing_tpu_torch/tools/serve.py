@@ -9,7 +9,12 @@ Ctrl-C or SIGTERM).
 * backend: `python -m gpu_image_processing_tpu_torch.server.app --device
   DEVICE --host HOST --port PORT` (its `main()` builds every kernel before
   it listens);
-* frontend: `python -m http.server FRONTEND_PORT` in `frontend/`.
+* frontend: `python -m http.server FRONTEND_PORT` in the repository's
+  `frontend/`, which only a checkout has: outside one, `start` and `run`
+  refuse before they start anything unless given `--no-frontend`.
+
+The backend runs in the directory that holds the package (a checkout's
+root, or the installation's), from which `python -m` imports it.
 
 `start` refuses a port already in use, launches each server in a session of
 its own with its output in a log file, and waits for the backend's
@@ -46,9 +51,8 @@ import urllib.request
 from pathlib import Path
 
 from ..core import config
+from ..core.files import ROOT_DIR, repo_file
 
-REPO = Path(__file__).resolve().parents[2]
-FRONTEND_DIR = REPO / "frontend"
 BACKEND, FRONTEND = "backend", "frontend"
 #: Seconds between a server's SIGTERM and its SIGKILL.
 STOP_TIMEOUT_S = 15.0
@@ -181,7 +185,7 @@ def _check_ports(args, with_frontend: bool) -> bool:
 
 
 def _start_backend(args, log: Path | None) -> subprocess.Popen | None:
-    proc = _spawn(backend_command(args), REPO, log)
+    proc = _spawn(backend_command(args), ROOT_DIR, log)
     print(f"Backend starting on {args.device} (pid {proc.pid}"
           + (f", log {log}" if log else "") + ") ...", flush=True)
     state = wait_healthy(args.port, args.timeout, proc)
@@ -200,8 +204,9 @@ def _start_backend(args, log: Path | None) -> subprocess.Popen | None:
     return None
 
 
-def _start_frontend(args, log: Path | None) -> subprocess.Popen | None:
-    proc = _spawn(frontend_command(args), FRONTEND_DIR, log)
+def _start_frontend(args, directory: Path,
+                    log: Path | None) -> subprocess.Popen | None:
+    proc = _spawn(frontend_command(args), directory, log)
     if not _wait_port(args.frontend_port, proc, 15.0):
         print(f"Frontend did not listen on port {args.frontend_port}")
         _terminate(proc.pid, STOP_TIMEOUT_S)
@@ -212,7 +217,7 @@ def _start_frontend(args, log: Path | None) -> subprocess.Popen | None:
 
 
 def cmd_start(args) -> int:
-    with_frontend = not args.no_frontend
+    with_frontend = args.frontend_dir is not None
     if not _check_ports(args, with_frontend):
         return 1
     Path(args.run_dir).mkdir(parents=True, exist_ok=True)
@@ -223,7 +228,7 @@ def cmd_start(args) -> int:
     pid_file.write_text(str(backend.pid))
     if with_frontend:
         frontend_pid, log = _files(args.run_dir, FRONTEND)
-        frontend = _start_frontend(args, log)
+        frontend = _start_frontend(args, args.frontend_dir, log)
         if frontend is None:
             _terminate(backend.pid, STOP_TIMEOUT_S)
             pid_file.unlink(missing_ok=True)
@@ -258,7 +263,7 @@ def cmd_status(args) -> int:
 def cmd_run(args) -> int:
     """Both servers as children in the foreground until Ctrl-C or SIGTERM,
     or until one exits; then both stop."""
-    with_frontend = not args.no_frontend
+    with_frontend = args.frontend_dir is not None
     if not _check_ports(args, with_frontend):
         return 1
     stopping = []
@@ -276,7 +281,7 @@ def cmd_run(args) -> int:
             return 1
         procs.append((BACKEND, backend))
         if with_frontend:
-            frontend = _start_frontend(args, None)
+            frontend = _start_frontend(args, args.frontend_dir, None)
             if frontend is None:
                 return 1
             procs.append((FRONTEND, frontend))
@@ -316,6 +321,15 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--timeout", type=float, default=600.0,
                         help="seconds to wait for the backend's health")
     args = parser.parse_args(argv)
+    args.frontend_dir = None
+    if args.command in ("start", "run") and not args.no_frontend:
+        # Refuse before anything starts where there is no web UI.
+        try:
+            args.frontend_dir = repo_file(
+                "frontend/", "pass --no-frontend to serve the API alone")
+        except FileNotFoundError as exc:
+            print(exc, file=sys.stderr)
+            return 1
     return {"start": cmd_start, "stop": cmd_stop, "status": cmd_status,
             "run": cmd_run}[args.command](args)
 

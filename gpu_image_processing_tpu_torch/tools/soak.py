@@ -17,6 +17,11 @@ The port of the JAX system's `scripts/soak_fuzz.py`:
    on planes from it); row bands with halo rows (`rows_prepadded`), held
    against the oracle's rows of the whole image; the Sobel batch with
    `zero_rows=False`.  Widths k*512 +- 3, heights k*8 +- 3 and k*64 +- 3.
+   Every `FOLDED_EVERY`-th trial is a level-4 gaussian below r = 3 on one
+   of the planar blur's routes, so the folded planar gaussian, which the
+   other draws reach in about 1 trial of 30, runs in at least N // 30.
+   A third generator draws this section, so that its trials do not depend
+   on the first two sections'.
 
 Sections 1 and 2 keep the JAX soak's trials draw for draw, except every
 third one (trial % 3 == 1), whose shape and image a second generator draws
@@ -69,6 +74,8 @@ TRIALS = 150
 SOBEL_MAX_DIFF = 6
 PLANAR_KERNELS = ("gaussian_planar", "gaussian_folded_planar", "box_planar",
                   "sobel_planar", "sobel_f32_planar")
+#: Section 3's trials 0, 10, 20, ... are level-4 gaussians below r = 3.
+FOLDED_EVERY = 10
 
 
 @dataclass
@@ -233,14 +240,16 @@ def section_planar(rt: FilterRuntime, pool: OraclePool, rng,
     adv: dict = {}
     fused.register_all(adv.__setitem__)
     for trial in range(n):
-        route = int(rng.integers(0, 3))
-        filt = str(rng.choice(["gaussian", "box", "sobel"]))
-        lvl = int(rng.choice([1, 2, 4]))
+        folded = trial % FOLDED_EVERY == 0
+        route = int(rng.integers(0, 2 if folded else 3))
+        filt = "gaussian" if folded else str(rng.choice(
+            ["gaussian", "box", "sobel"]))
+        lvl = 4 if folded else int(rng.choice([1, 2, 4]))
         h, w = planar_shape(rng)
         # Level 4 folds the gaussian's taps below r = 3 and runs the band
         # from it: both sides of that edge, about half the time each.
-        r = (int(rng.integers(1, 6 if lvl == 4 else 16)) if filt == "gaussian"
-             else int(rng.integers(1, 41)))
+        r = (int(rng.integers(1, 3 if folded else 6 if lvl == 4 else 16))
+             if filt == "gaussian" else int(rng.integers(1, 41)))
         sigma = float(rng.uniform(0.5, 8))
         table = gaussian_kernel_f32(r, sigma)
         label = f"[p{trial}] h={h} w={w} lvl={lvl}"
@@ -330,6 +339,7 @@ def main(argv: list[str] | None = None) -> int:
     rt = FilterRuntime(args.device)
     rng = np.random.default_rng(args.seed)
     edge_rng = np.random.default_rng([args.seed, 1])
+    planar_rng = np.random.default_rng([args.seed, 2])
     n = args.trials
     print(f"soak on {rt.device}: seed {args.seed}, N = {n}", flush=True)
     failures = 0
@@ -339,7 +349,7 @@ def main(argv: list[str] | None = None) -> int:
         sections = [section_rows(rt, pool, rng, edge_rng, n),
                     section_gaussian(rt, pool, rng, edge_rng, n // 2)]
         planar_before = dict(LAUNCHES)
-        sections.append(section_planar(rt, pool, rng, n // 3))
+        sections.append(section_planar(rt, pool, planar_rng, n // 3))
         planar_launches = {k: LAUNCHES[k] - planar_before.get(k, 0)
                            for k in PLANAR_KERNELS}
         for sec in sections:

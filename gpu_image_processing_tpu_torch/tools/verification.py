@@ -5,11 +5,13 @@ The tools (`validation.py`, `soak.py`, `sol_report.py`, `silicon_ci.py`)
 are the port's counterparts of the JAX system's on-silicon tier
 (`scripts/tpu_validation.py`, `soak_fuzz.py`, `sol_report.py`,
 `silicon_ci.py`).  Each runs on the card unless asked for the CPU with
-`--device cpu`, and writes one JSON report into `OUT_DIR` (listed in
-`.gitignore`), or the directory given with `--out-dir`.
+`--device cpu`, and writes one JSON report into `OUT_DIR`, `silicon_out/`
+in the working directory (listed in the repository's `.gitignore`), or the
+directory given with `--out-dir`; never into the package.
 
 The oracle is the repository's independent numpy oracle of the reference's
-semantics, `tests/oracle_numpy.py`: test code, not code of the port.  It is
+semantics, `tests/oracle_numpy.py`: test code, not code of the port, which
+no wheel carries, so the tools that need it are checkout tools.  It is
 loaded from the checkout when a tool runs, never when a module is imported.
 Its Sobel loops over the pixels in Python (about 20 us a pixel), so the
 tools hand each oracle call to an `OraclePool` of worker processes while
@@ -30,19 +32,19 @@ from pathlib import Path
 from types import ModuleType
 from typing import Any
 
-REPO = Path(__file__).resolve().parents[2]
-ORACLE_PATH = REPO / "tests" / "oracle_numpy.py"
+from ..core.files import repo_file
+
+ORACLE = "tests/oracle_numpy.py"
 #: Where the tools write their JSON reports unless given --out-dir.
-OUT_DIR = REPO / "silicon_out"
+OUT_DIR = Path("silicon_out")
 
 
 @functools.cache
 def load_oracle() -> ModuleType:
-    """`tests/oracle_numpy.py` of this checkout, loaded once a process."""
-    if not ORACLE_PATH.is_file():
-        raise FileNotFoundError(
-            f"the numpy oracle {ORACLE_PATH} is not in this checkout")
-    spec = importlib.util.spec_from_file_location("oracle_numpy", ORACLE_PATH)
+    """`tests/oracle_numpy.py` of this checkout, loaded once a process;
+    raises naming it outside a checkout."""
+    path = repo_file(ORACLE, "the numpy oracle of the verification tools")
+    spec = importlib.util.spec_from_file_location("oracle_numpy", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module

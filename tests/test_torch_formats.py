@@ -29,6 +29,7 @@ from PIL import Image
 
 from gpu_image_processing_tpu.utils import image as jax_image
 from gpu_image_processing_tpu.utils import native_codec as jax_native_codec
+from gpu_image_processing_tpu_torch.core.files import ROOT_DIR
 from gpu_image_processing_tpu_torch.ops.cuda import build
 from gpu_image_processing_tpu_torch.utils import image as codec
 from gpu_image_processing_tpu_torch.utils import native_codec
@@ -47,6 +48,9 @@ from .test_native_formats import (
 )
 
 FIXTURES = Path(__file__).parent / "data" / "torch_formats"
+
+# The reference sources of the JAX package's native tier.
+NATIVE_SRC = ROOT_DIR / "native" / "src"
 
 
 def _cxx() -> str:
@@ -67,7 +71,7 @@ def decoders():
 def reference_lib(tmp_path_factory):
     """The JAX package's native library (codec, decoders, JPEG), built from
     native/src as its CMake build would."""
-    src = build.NATIVE_DIR
+    src = NATIVE_SRC
     out = tmp_path_factory.mktemp("gip_native") / "libgip_codec.so"
     proc = subprocess.run(
         [_cxx(), "-std=c++17", "-O2", "-shared", "-fPIC", "-o", str(out),

@@ -19,6 +19,7 @@ import pytest
 
 from gpu_image_processing_tpu.utils import image as jax_image
 from gpu_image_processing_tpu.utils import native_codec as jax_native_codec
+from gpu_image_processing_tpu_torch.core.files import ROOT_DIR
 from gpu_image_processing_tpu_torch.ops.cuda import build
 from gpu_image_processing_tpu_torch.utils import image as codec
 from gpu_image_processing_tpu_torch.utils import native_codec
@@ -28,6 +29,9 @@ from .test_torch_codec import SAMPLES, _pack, make_png
 
 FIXTURES = Path(__file__).parent / "data" / "torch_formats"
 _REFERENCE_SOURCES = ("gip_codec.cpp", "gip_formats.cpp", "gip_jpeg.cpp")
+
+# The reference sources of the JAX package's native tier.
+NATIVE_SRC = ROOT_DIR / "native" / "src"
 
 
 def reference_library() -> str:
@@ -39,9 +43,9 @@ def reference_library() -> str:
         cxx = build.cxx_path()
     except RuntimeError:
         pytest.skip("no C++ compiler: the reference library cannot be built")
-    sources = [build.NATIVE_DIR / name for name in _REFERENCE_SOURCES]
+    sources = [NATIVE_SRC / name for name in _REFERENCE_SOURCES]
     digest = hashlib.sha256(b"".join(
-        p.read_bytes() for p in [*sources, build.NATIVE_DIR / "gip_limits.h"]))
+        p.read_bytes() for p in [*sources, NATIVE_SRC / "gip_limits.h"]))
     target = Path(tempfile.gettempdir()) / (
         f"gip_reference_codec-{digest.hexdigest()[:16]}.so")
     if not target.exists():

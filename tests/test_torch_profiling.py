@@ -6,6 +6,7 @@ every kernel runs both passes in one launch, and held against the JAX
 package's profiler on the same CPU call.
 """
 
+import contextlib
 import json
 
 import numpy as np
@@ -79,6 +80,40 @@ def test_profile_filter_names_the_served_function(rng, cpu, filt, level, sigma,
     assert deep["memory"]["IO Throughput (Gbyte/s)"] == pytest.approx(
         2 * img.size / (deep["total_kernel_duration_ms"] / 1e3) / 1e9)
     assert "Peak Table" in deep["config"]
+
+
+def test_profile_first_run_holds_the_timing_lock(rng, cpu, monkeypatch):
+    """A profile's untimed first run holds the card's timing lock, as the
+    runtime's own first run does, so it never lands in another request's
+    bracket; the lock is released before the measured runs (the CPU's take
+    none), which take the session lock first."""
+    held, inside = [], []
+
+    @contextlib.contextmanager
+    def spy(devices):
+        held.append(tuple(devices))
+        try:
+            yield
+        finally:
+            held.pop()
+
+    monkeypatch.setattr(profiler, "exclusive", spy)
+    prepare = cpu._single_call
+
+    def spied(*args, **kwargs):
+        call = prepare(*args, **kwargs)
+
+        def run():
+            inside.append(list(held))
+            return call.run()
+
+        return call._replace(run=run)
+
+    monkeypatch.setattr(cpu, "_single_call", spied)
+    profile_filter(cpu, make_image(rng, 16, 20, 3), "gaussian", 2, sigma=2.0,
+                   radius=3)
+    assert inside[0] == [(torch.device("cpu"),)]
+    assert inside[1:] == [[]] * profiler.PROFILE_REPS
 
 
 def test_profile_batch_contract(rng, cpu):
@@ -255,6 +290,74 @@ def test_card_profile_lists_the_hand_kernel():
     assert deep["total_kernel_duration_ms"] == pytest.approx(metrics.time_ms, rel=0.3)
 
 
+#: The kernel a trace names for each wrapper's launch at the radii below.
+TRACE_NAMES = {
+    "gaussian_rows": "gauss_window_rows<gip::Weighted",
+    "gaussian_folded_rows": "gauss_window_rows<gip::Folded",
+    "box_rows": "gauss_window_rows<gip::Box",
+    "gaussian_band_rows": "band_mma_rows",
+    "sobel_rows": "sobel_tile_rows<true",
+    "sobel_f32_rows": "sobel_tile_rows<false",
+}
+
+
+@pytest.mark.cuda
+def test_card_traces_keep_every_launch_late_in_a_process():
+    """After 204 profiled requests, each profile and then a profile of the
+    model's forward hold every launch of every hand kernel: for each, the
+    trace's count equals the LAUNCHES delta of the traced runs (of the
+    session that was rated, `Trace Sessions` counting those opened)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an sm_90 CUDA card")
+    from collections import Counter
+
+    from gpu_image_processing_tpu_torch.models import GaussianBlur
+    from gpu_image_processing_tpu_torch.ops.cuda import LAUNCHES
+
+    rt = FilterRuntime("cuda")
+    img = make_image(np.random.default_rng(0), 512, 640, 3)
+    cases = [("gaussian", 2, 2.0, 3), ("box", 2, None, 5), ("sobel", 2, None, None),
+             ("gaussian", 4, 2.0, 2), ("gaussian", 4, 2.0, 5), ("sobel", 4, None, None)]
+
+    def by_wrapper(stats) -> dict[str, int]:
+        counts: Counter = Counter()
+        for name, row in stats.items():
+            short = profiler.short_kernel_name(name)
+            for key, prefix in TRACE_NAMES.items():
+                if short.startswith(prefix):
+                    counts[key] += row["count"]
+        return dict(counts)
+
+    reps = profiler.PROFILE_REPS
+    reopened = 0
+    for i in range(204):
+        filt, level, sigma, radius = cases[i % len(cases)]
+        before = Counter(LAUNCHES)
+        try:
+            deep = profile_filter(rt, img, filt, level, sigma=sigma,
+                                  radius=radius)
+        except RuntimeError as exc:
+            raise AssertionError(f"profile {i}, {filt} L{level}: {exc}") from exc
+        made = Counter(LAUNCHES) - before
+        # The untimed first run, then the traced runs of each session.
+        runs = 1 + reps * deep["config"]["Trace Sessions"]
+        reopened += deep["config"]["Trace Sessions"] > 1
+        assert by_wrapper(deep["trace_kernel_stats"]) == {
+            key: n // runs * reps for key, n in made.items()}, (i, made)
+    # The sessions' primers and lead, not their second chance, keep the
+    # launches: 0 to 1 profile in 200 lost one on the card (PERF.md).
+    assert reopened <= 3
+    model = GaussianBlur(2.0, 3, 2).to(rt.device)
+    x = torch.from_numpy(img).to(rt.device)
+    model(x)
+    before = Counter(LAUNCHES)
+    _, kernels, _, account = profiler._measure((rt.device,), lambda: model(x),
+                                               reps)
+    made = Counter(LAUNCHES) - before
+    assert made == {"gaussian_rows": reps * account["Trace Sessions"]}
+    assert by_wrapper(kernels) == {"gaussian_rows": reps}
+
+
 def test_short_kernel_names_label_the_execution_rows(monkeypatch):
     assert profiler.short_kernel_name(
         "void (anonymous namespace)::gauss_window_rows<gip::Weighted, 3>("
@@ -273,24 +376,84 @@ class _Row:
         self.device_time_total, self.device_type = device_us, device_type
 
 
-class _Trace:
-    def __init__(self, rows):
-        self.rows = rows
-
-    def key_averages(self):
-        return self.rows
-
-
 def test_trace_rows_count_each_call_once_a_launch():
-    """A row's time a call is its mean launch times its launches a call, so
-    a launch the trace missed does not shrink it; host rows are left out."""
+    """A row's time a call is its device time over the calls (a launch the
+    trace missed is not made up for: `check_launches` refuses such a
+    trace); host rows, rows without device time and the session's primers
+    are left out."""
     cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
-    rows = profiler._trace_kernels(_Trace([
-        _Row("one a call, one missed", 3, 210.0, cuda),
-        _Row("fourteen a call", 55, 1100.0, cuda),
+    averages = [
+        _Row("one a call", 4, 280.0, cuda),
+        _Row("fourteen a call", 56, 1120.0, cuda),
         _Row("aten::add", 4, 300.0, cpu),
-        _Row("idle", 4, 0.0, cuda)]), reps=4)
-    assert set(rows) == {"one a call, one missed", "fourteen a call"}
-    assert rows["one a call, one missed"]["per_call_ms"] == pytest.approx(0.07)
+        _Row("idle", 4, 0.0, cuda),
+        _Row("spin_kernel(long)", 12, 30.0, cuda)]
+    rows = profiler._trace_kernels(averages, reps=4)
+    assert profiler.primers_kept(averages) == 12
+    assert set(rows) == {"one a call", "fourteen a call"}
+    assert rows["one a call"]["per_call_ms"] == pytest.approx(0.07)
     assert rows["fourteen a call"]["per_call_ms"] == pytest.approx(0.02 * 14)
     assert rows["fourteen a call"]["avg_ms"] == pytest.approx(0.02)
+
+
+GAUSS_ROW = ("void (anonymous namespace)::gauss_window_rows<gip::Weighted, 3>"
+             "(unsigned char const*, unsigned char*, int)")
+COPY_ROW = "Memcpy DtoD (Device -> Device)"
+
+
+def _rows(counts: dict[str, int]) -> dict[str, dict[str, float]]:
+    """Trace rows (`_trace_kernels`) of the given launch counts."""
+    return {name: {"count": n, "total_ms": 0.07 * n, "avg_ms": 0.07,
+                   "per_call_ms": 0.07 * n / 10} for name, n in counts.items()}
+
+
+@pytest.mark.parametrize("rows,made", [
+    ({GAUSS_ROW: 10, COPY_ROW: 20}, 10),
+    ({"box_wide_h(unsigned char const*)": 10,
+      "box_wide_v(unsigned char const*)": 10}, 10),
+    ({"sobel_tile_rows<true, 3, false>(int)": 4,
+      "band_mma_rows(int)": 4, "box_window_rows(int)": 2}, 10),
+    ({COPY_ROW: 4}, 0),
+])
+def test_a_trace_with_every_launch_is_rated(rows, made):
+    profiler.check_launches(_rows(rows), made)
+
+
+@pytest.mark.parametrize("rows,made,traced", [
+    ({GAUSS_ROW: 8, COPY_ROW: 20}, 10, 8),
+    ({COPY_ROW: 20}, 10, 0),
+    ({"box_wide_h(unsigned char const*)": 10,
+      "box_wide_v(unsigned char const*)": 9}, 10, 10),
+])
+def test_a_trace_that_lost_launches_is_refused(rows, made, traced):
+    """The trace's count and LAUNCHES' both stand in the error, which the
+    server answers as `profiling_error` (test_torch_server.py)."""
+    with pytest.raises(RuntimeError, match=(
+            f"the trace holds {traced} hand-kernel launches where {made} "
+            f"were made")):
+        profiler.check_launches(_rows(rows), made)
+
+
+def test_a_session_that_lost_launches_is_opened_again(monkeypatch):
+    """On the card a profile opens another session while its trace misses a
+    launch, `SESSION_ATTEMPTS` at most, and reports how many it took."""
+    card = (torch.device("cuda", 0),)
+    sessions = []
+
+    def session(devices, run, reps):
+        sessions.append(devices)
+        lost = len(sessions) < 3
+        return _rows({GAUSS_ROW: 9 if lost else 10}), 10, 1 << 20, 16
+
+    monkeypatch.setattr(profiler, "_session", session)
+    times, kernels, peak, account = profiler._measure(card, lambda: None, 10)
+    assert len(sessions) == 3 and kernels[GAUSS_ROW]["count"] == 10
+    assert account == {"Trace Sessions": 3, "Trace Primers Kept": "16 of 16"}
+    assert times == [pytest.approx(0.07)] * 10 and peak == 1 << 20
+    sessions.clear()
+    monkeypatch.setattr(profiler, "SESSION_ATTEMPTS", 2)
+    with pytest.raises(profiler.LostLaunches, match=(
+            "9 hand-kernel launches where 10 were made .*, in each of 2 "
+            "sessions")):
+        profiler._measure(card, lambda: None, 10)
+    assert len(sessions) == 2

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from gpu_image_processing_tpu_torch.ops.cuda import blur
+from gpu_image_processing_tpu_torch.ops.cuda import blur, blur_planar
 from gpu_image_processing_tpu_torch.runtime.dispatch import FilterRuntime
 from gpu_image_processing_tpu_torch.tools import soak
 
@@ -104,6 +104,26 @@ def test_section_1_keeps_the_jax_soaks_trials():
             assert args[1] == r
         else:
             assert args[1] == (1 if lvl == 4 else lvl)
+
+
+def test_section_3_draws_the_folded_planar_gaussian(monkeypatch):
+    """The default run's planar section (N = 150: 50 trials, its own
+    generator) reaches the folded planar gaussian in at least 5 trials; on
+    the card the soak fails unless it launched there."""
+    launches = []
+    folded = blur_planar.gaussian_folded_planar
+
+    def counted(*args, **kwargs):
+        launches.append(args[0].shape)
+        return folded(*args, **kwargs)
+
+    monkeypatch.setattr(blur_planar, "gaussian_folded_planar", counted)
+    sec = soak.section_planar(FilterRuntime("cpu"), _Recorder(),
+                              np.random.default_rng([soak.SEED, 2]),
+                              soak.TRIALS // 3)
+    assert not sec.errors
+    assert len(sec.trials) == soak.TRIALS // 3
+    assert len(launches) >= 5
 
 
 @pytest.mark.parametrize("c", [1, 3, 4])

@@ -14,7 +14,8 @@ import torch
 from gpu_image_processing_tpu.runtime.dispatch import RUNTIME as JAX_RUNTIME
 from gpu_image_processing_tpu_torch.runtime.dispatch import FilterRuntime
 from gpu_image_processing_tpu_torch.tools import validation
-from gpu_image_processing_tpu_torch.tools.verification import REPO, Checks
+from gpu_image_processing_tpu_torch.core.files import ROOT_DIR
+from gpu_image_processing_tpu_torch.tools.verification import Checks
 
 from .sobel_tolerance import assert_sobel_close
 
@@ -142,5 +143,5 @@ def test_oracle_loads_when_a_tool_runs_not_at_import():
             "assert load_oracle.cache_info().currsize == 0\n"
             "assert load_oracle().__file__.endswith('tests/oracle_numpy.py')\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=120, cwd=REPO)
+                          text=True, timeout=120, cwd=ROOT_DIR)
     assert proc.returncode == 0, proc.stderr
