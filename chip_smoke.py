@@ -11,9 +11,11 @@ Phases, each of which fails the run on its own:
    limit and the toolchain;
 2. build: builds every library of the main path from the sources, one
    compiler a library, all started together: nvcc for the kernels, the
-   host C++ compiler for the PNG codec helper (ops/cuda/png_codec.cpp),
-   the upload decoders of native/src and phase 10's load generator
-   (native/tools/loadgen.cpp);
+   host C++ compiler for the codec's library (native/src/gip_codec.cpp,
+   gip_jpeg.cpp and gip_formats.cpp, linked with zlib: PNG, the upload
+   decoders, the file writers) and phase 10's load generator
+   (native/tools/loadgen.cpp); prints the codec library's sources and
+   seconds;
 3. kernel vs plain: each of the eleven launchers against its plain torch
    version on the card, at small shapes, edge shapes and the full 2146x3239
    RGB image, gaussian at r in {1, 2, 3, 15, 31} and the rows gaussian
@@ -29,8 +31,10 @@ Phases, each of which fails the run on its own:
    with its plain version on the same batch and equal its single-image
    launches; the rows gaussian launched from three threads at once with
    three tables, each launch equal to its own plain version;
-   the PNG codec helper's unfilter against its numpy version, bpp 1 to
-   8, and its Sub rows; the
+   the zlib tier's PNG decode through gip_png_decode16 against its plain
+   path (`_png_samples`, `unfilter_plain`), and gip_png_decode against
+   the plain path's high bytes, on small PNGs of every colour type and
+   depth whose rows take the five filter types in turn; the
    upload decoders on the committed fixtures (tests/data/torch_formats:
    JPEG 4:2:0, 4:4:4 and grey, GIF, BMP, PSD, HDR, PIC, PNM, TGA and 1-,
    4-, 16-bit and interlaced PNG) against the pixels the JAX package
@@ -54,11 +58,11 @@ Phases, each of which fails the run on its own:
    at levels 2 and 4 (one profiled), an error probe; the six rows kernels'
    launch counts read around that run, each request's wall split into
    decode, run, encode and profile; then the codec's split on the scene's
-   PNG and JPEG, the native PNG tier beside the old one (base64, inflate,
-   the unfilter, CRC, both PNG decodes, JPEG decode; the answer's png_encode, its Sub rows, deflate
-   with run-length matching against level-1 full matching, and both
-   answers' sizes; beside them, as a yardstick, the JAX package's
-   gip_codec.cpp built here with zlib where the host has its header);
+   PNG and JPEG through the port's library of gip_codec.cpp (base64,
+   `png_decode` through gip_png_decode, the zlib tier's `decode_png`
+   (its checks, then gip_png_decode) and `decode_png16` (through
+   gip_png_decode16), JPEG decode; the answer's `png_encode`
+   through gip_png_encode, and its size);
 6. planar path: (a) the models (`GaussianBlur`, `BoxBlur`,
    `SobelEdgeDetection`, an `nn.Sequential` of two), the six registry
    keys and `entry()` on the full image on the card, each equal to the
@@ -132,8 +136,8 @@ Phases, each of which fails the run on its own:
    equal the checkout server's answer (phase 5), then `stop` (the
    launcher's code in this process, by its PID file); a `start` with the
    web UI, which must refuse naming `frontend/`; no nvcc may run, the
-   decoders and the PNG helper must be built from the install's own copies
-   under the checkout's names, and nothing may be written under the
+   codec's library must be built from the install's own copies of its
+   three sources under the checkout's name, and nothing may be written under the
    install; it prints each step's seconds.
 
 The line before the last is a JSON object `{"kernels": [...]}`; the last is
@@ -145,7 +149,6 @@ from __future__ import annotations
 
 import base64
 import contextlib
-import ctypes
 import io
 import json
 import os
@@ -190,9 +193,10 @@ from gpu_image_processing_tpu_torch.runtime.dispatch import FilterRuntime
 from gpu_image_processing_tpu_torch.server.app import create_app
 from gpu_image_processing_tpu_torch.server.http import AppServer
 from gpu_image_processing_tpu_torch.tools import serve
+from gpu_image_processing_tpu_torch.utils import image as codec
 from gpu_image_processing_tpu_torch.utils import native_codec
 from gpu_image_processing_tpu_torch.utils.image import (
-    decode_base64_image, decode_png, encode_png, unfilter_plain)
+    decode_base64_image, decode_png, encode_png)
 from tests import oracle_numpy as oracle
 
 FULL = (2146, 3239, 3)        # the README image (bench.py:34,50-52)
@@ -422,6 +426,37 @@ def scene_image(rng: np.random.Generator) -> np.ndarray:
     return np.clip(np.rint(img), 0, 255).astype(np.uint8)
 
 
+def filter_predictions(x: np.ndarray, bpp: int) -> np.ndarray:
+    """(5, H, row bytes) int16: the predictions of the five PNG filters
+    (None, Sub, Up, Average, Paeth) for packed rows `x` (int16), `bpp`
+    bytes a filter unit."""
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    ul = np.zeros_like(x)
+    ul[1:, bpp:] = x[:-1, :-bpp]
+    p = a + b - ul
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, ul))
+    return np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])
+
+
+def png_file(lines: np.ndarray, width: int, depth: int, colour: int,
+             extra=()) -> bytes:
+    """PNG bytes of filtered scanlines (H, 1 + row bytes), zlib level 6,
+    the chunks of `extra` ((type, payload) pairs) before IDAT."""
+    def chunk(kind: bytes, payload: bytes) -> bytes:
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+
+    ihdr = struct.pack(">IIBBBBB", width, len(lines), depth, colour, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + b"".join(chunk(k, v) for k, v in extra)
+            + chunk(b"IDAT", zlib.compress(lines.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
 def client_png(img: np.ndarray) -> tuple[bytes, dict[int, int]]:
     """(PNG bytes, rows per filter type) of an (H, W, 3) image as libpng and
     Pillow write it by default: each row's filter (None, Sub, Up, Average or
@@ -429,34 +464,37 @@ def client_png(img: np.ndarray) -> tuple[bytes, dict[int, int]]:
     specification's heuristic, then zlib level 6."""
     h, w, c = img.shape
     x = img.reshape(h, w * c).astype(np.int16)
-    a = np.zeros_like(x)
-    a[:, c:] = x[:, :-c]
-    b = np.zeros_like(x)
-    b[1:] = x[:-1]
-    ul = np.zeros_like(x)
-    ul[1:, c:] = x[:-1, :-c]
-    p = a + b - ul
-    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
-    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, ul))
     lines = np.empty((h, w * c + 1), np.uint8)
     best = None
-    for kind, pred in enumerate((0, a, b, (a + b) >> 1, paeth)):
+    for kind, pred in enumerate(filter_predictions(x, c)):
         res = ((x - pred) & 0xFF).astype(np.uint8)
         cost = np.abs(res.view(np.int8).astype(np.int32)).sum(axis=1)
         take = np.ones(h, bool) if best is None else cost < best
         best = cost if best is None else np.where(take, cost, best)
         lines[take, 0] = kind
         lines[take, 1:] = res[take]
-
-    def chunk(kind: bytes, payload: bytes) -> bytes:
-        return (struct.pack(">I", len(payload)) + kind + payload
-                + struct.pack(">I", zlib.crc32(kind + payload)))
-
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    png = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
-           + chunk(b"IDAT", zlib.compress(lines.tobytes(), 6)) + chunk(b"IEND", b""))
     kinds, counts = np.unique(lines[:, 0], return_counts=True)
-    return png, dict(zip(kinds.tolist(), counts.tolist()))
+    return png_file(lines, w, 8, 2), dict(zip(kinds.tolist(), counts.tolist()))
+
+
+def cycled_png(values: np.ndarray, depth: int, colour: int, extra=()) -> bytes:
+    """PNG bytes of (H, W, S) sample values at `depth` bits whose row k is
+    filtered by type k % 5 (None, Sub, Up, Average, Paeth)."""
+    h, w, samples = values.shape
+    if depth == 16:
+        packed = values.astype(">u2").view(np.uint8).reshape(h, -1)
+    elif depth == 8:
+        packed = values.astype(np.uint8).reshape(h, -1)
+    else:
+        bits = (values[..., :1] >> np.arange(depth - 1, -1, -1)) & 1
+        packed = np.packbits(bits.reshape(h, -1).astype(np.uint8), axis=1)
+    x = packed.astype(np.int16)
+    kinds = np.arange(h) % 5
+    pred = filter_predictions(x, max(1, samples * depth // 8))[kinds, np.arange(h)]
+    lines = np.empty((h, x.shape[1] + 1), np.uint8)
+    lines[:, 0] = kinds
+    lines[:, 1:] = (x - pred) & 0xFF
+    return png_file(lines, w, depth, colour, extra)
 
 
 def best_ms(fn, reps: int = 3) -> float:
@@ -469,118 +507,34 @@ def best_ms(fn, reps: int = 3) -> float:
     return best
 
 
-def idat(png: bytes) -> bytes:
-    """The concatenated IDAT payloads of a PNG."""
-    parts, pos = [], 8
-    while pos + 8 <= len(png):
-        length, kind = struct.unpack(">I4s", png[pos:pos + 8])
-        if kind == b"IDAT":
-            parts.append(png[pos + 8:pos + 8 + length])
-        pos += 12 + length
-    return b"".join(parts)
-
-
-def reference_png_codec(work: str):
-    """The JAX package's C++ PNG tier (native/src/gip_codec.cpp on zlib),
-    built into `work` with the host C++ compiler and `-lz`, as a same-run
-    yardstick for the port's tier; None (and why) where this host cannot
-    build it.  Only the codec split reads it."""
-    src = "native/src"
-    lib_path = os.path.join(work, "libgip_codec.so")
-    proc = subprocess.run(
-        [build.cxx_path(), "-std=c++17", "-O2", "-shared", "-fPIC", "-o",
-         lib_path, f"{src}/gip_codec.cpp", f"{src}/gip_formats.cpp", "-lz"],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        return None, proc.stderr.strip().splitlines()[-1:]
-    lib = ctypes.CDLL(lib_path)
-    out = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_size_t)]
-    lib.gip_png_encode.argtypes = [ctypes.c_char_p, *[ctypes.c_int] * 4, *out]
-    lib.gip_png_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
-                                   ctypes.POINTER(ctypes.c_void_p),
-                                   *[ctypes.POINTER(ctypes.c_int)] * 3]
-    lib.gip_free.argtypes = [ctypes.c_void_p]
-    return lib, None
-
-
-def reference_encode(lib, img: np.ndarray) -> bytes:
-    buf, n = ctypes.c_void_p(), ctypes.c_size_t()
-    h, w, c = img.shape
-    require(lib.gip_png_encode(img.ctypes.data_as(ctypes.c_char_p), h, w, c, 1,
-                               ctypes.byref(buf), ctypes.byref(n)) == 0,
-            "gip_png_encode failed")
-    try:
-        return ctypes.string_at(buf, n.value)
-    finally:
-        lib.gip_free(buf)
-
-
-def reference_decode(lib, png: bytes) -> None:
-    buf = ctypes.c_void_p()
-    dims = [ctypes.c_int() for _ in range(3)]
-    require(lib.gip_png_decode(png, len(png), ctypes.byref(buf),
-                               *map(ctypes.byref, dims)) == 0,
-            "gip_png_decode failed")
-    lib.gip_free(buf)
-
-
 def codec_split(png: bytes, jpeg: bytes, answer: np.ndarray) -> dict[str, float]:
-    """Host-clock ms (least of 3) of each step of the server's codec, the
-    native PNG tier beside the old one: the two uploads' decodes (base64,
-    then inflate and unfilter for the PNG; the native decoder for the
-    JPEG) and the PNG
-    encode of an answer (Sub rows, then deflate at level 1 with run-length
-    matching, as the native tier does, and with full matching, as the old
-    encoder did; base64); and the sizes of both answers."""
-    h, w, c = answer.shape
+    """Host-clock ms (least of 3) of each step of the server's codec,
+    through the port's library of native/src/gip_codec.cpp: the two
+    uploads' decodes (base64; for the PNG `png_decode` through
+    gip_png_decode, as the server reads it, the zlib tier's `decode_png`,
+    its checks then gip_png_decode, as the upload endpoint and the CLI read
+    it, and its `decode_png16` through gip_png_decode16; the native decoder
+    for the JPEG) and the PNG encode of an answer (`png_encode` through
+    gip_png_encode: Sub rows, deflate at level 1 with run-length matching;
+    base64); and the answer's size."""
     png_text, jpeg_text = (base64.b64encode(x) for x in (png, jpeg))
-    raw = zlib.decompress(idat(png))
-    lines = native_codec.png_filter_rows(answer, 1)
     out = encode_png(answer)
-
-    def rle() -> bytes:
-        deflater = zlib.compressobj(1, zlib.DEFLATED, 15, 8, zlib.Z_RLE)
-        return deflater.compress(lines) + deflater.flush()
-
     steps = {
         "PNG upload: base64 decode": best_ms(lambda: base64.b64decode(png_text)),
-        "PNG upload: inflate": best_ms(lambda: zlib.decompress(idat(png))),
-        "PNG upload: unfilter": best_ms(
-            lambda: native_codec.png_unfilter(raw, h, w * c, c)),
-        "PNG upload: CRC of the image data": best_ms(lambda: zlib.crc32(idat(png))),
-        "PNG upload: native png_decode in all": best_ms(
+        "PNG upload: png_decode (gip_png_decode)": best_ms(
             lambda: native_codec.png_decode(png)),
-        "PNG upload: zlib-tier decode_png in all": best_ms(lambda: decode_png(png)),
+        "PNG upload: zlib-tier decode_png (gip_png_decode)": best_ms(
+            lambda: decode_png(png)),
+        "PNG upload: zlib-tier decode_png16 (gip_png_decode16)": best_ms(
+            lambda: codec.decode_png16(png)),
         "JPEG upload: base64 decode": best_ms(lambda: base64.b64decode(jpeg_text)),
         "JPEG upload: native JPEG decode": best_ms(
             lambda: native_codec.jpeg_decode(jpeg)),
-        "PNG answer: png_encode in all": best_ms(lambda: encode_png(answer)),
-        "PNG answer: Sub rows": best_ms(
-            lambda: native_codec.png_filter_rows(answer, 1)),
-        "PNG answer: deflate level 1, run-length": best_ms(rle),
-        "PNG answer: deflate level 1, full matching": best_ms(
-            lambda: zlib.compress(lines, 1)),
+        "PNG answer: png_encode (gip_png_encode)": best_ms(
+            lambda: encode_png(answer)),
         "PNG answer: base64 encode": best_ms(lambda: base64.b64encode(out)),
     }
-    steps["PNG answer bytes, run-length"] = float(len(out))
-    steps["PNG answer bytes, full matching"] = float(
-        len(out) - len(rle()) + len(zlib.compress(lines, 1)))
-    work = tempfile.mkdtemp(prefix="gip_smoke_codec_")
-    try:
-        lib, why = reference_png_codec(work)
-        if lib is None:
-            print(f"gip_codec.cpp not built here ({why}): its times not measured")
-        else:
-            ref = reference_encode(lib, answer)
-            print(f"gip_codec.cpp (zlib) beside the port's tier: the answer's "
-                  f"bytes {'equal' if ref == out else 'differ'} "
-                  f"({len(ref)} against {len(out)})")
-            steps["gip_codec.cpp: gip_png_encode"] = best_ms(
-                lambda: reference_encode(lib, answer))
-            steps["gip_codec.cpp: gip_png_decode of the upload"] = best_ms(
-                lambda: reference_decode(lib, png))
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    steps["PNG answer bytes"] = float(len(out))
     return steps
 
 
@@ -1184,8 +1138,8 @@ def installed_package(card: str, scene_jpeg: bytes,
                 and serve.read_pid(os.path.join(work, "run"), serve.BACKEND) is None
                 and not serve.port_in_use(port),
                 f"installed stop: {said.getvalue()}")
-        # 11.5 No nvcc ran; the cache gained the host libraries, compiled
-        # from the install's copies under the checkout's names; nothing was
+        # 11.5 No nvcc ran; the cache gained the codec's library, compiled
+        # from the install's copies under the checkout's name; nothing was
         # written under the install.
         require(not os.path.exists(mark), "phase 11 ran nvcc: "
                 + (open(mark).read() if os.path.exists(mark) else ""))
@@ -1238,8 +1192,16 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{', '.join(build.LIBRARIES)} and {build.LOADGEN} (one compiler "
           f"each, in parallel: nvcc for the kernels, the host C++ compiler "
-          f"for the PNG codec helper, the decoders and loadgen); each: " + ", ".join(
+          f"for the codec's library and loadgen); each: " + ", ".join(
               f"{n} {t:.1f} s" for n, t in build.BUILD_SECONDS.items()))
+    cxx_version = subprocess.run([build.cxx_path(), "--version"], capture_output=True,
+                                 text=True, check=True).stdout.splitlines()[0]
+    codec_sources = [p for p in files.CARRIED if p.endswith(".cpp")]
+    require("native/src/gip_codec.cpp" in codec_sources,
+            f"the codec's library is built from {codec_sources}")
+    print(f"codec library ({build.DECODERS}): built from "
+          f"{', '.join(codec_sources)} with {' '.join(build.CXX_LIBS)} by "
+          f"{cxx_version} in {build.BUILD_SECONDS.get(build.DECODERS, 0.0):.1f} s")
     for name, log in build.BUILD_LOGS.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1462,35 +1424,48 @@ def main() -> int:
           f"zero_rows=False and no halo rows equals its plain version")
     del imgs, batch_planes, flat, band
 
-    # The PNG codec's C++ helper (ops/cuda/png_codec.cpp): its unfilter
-    # against the numpy plain version, every filter type in turn, 1 to 8
-    # bytes a pixel; its Sub filter rows against numpy.
+    # The zlib tier (the upload endpoint's and the CLI's PNG reader) through
+    # gip_png_decode16 against its plain path (_png_samples and
+    # unfilter_plain) on small PNGs whose rows take the five filter types
+    # in turn, every colour type at every depth, palettes with tRNS.
+    tier_rng = np.random.default_rng(SEED + 1)
+    tier_cases = 0
+    for colour, depths in sorted(codec.DEPTHS.items()):
+        for depth in depths:
+            values = tier_rng.integers(0, 1 << depth, (23, 37, codec.SAMPLES[colour]))
+            extra = []
+            if colour == 3:
+                entries = 1 << depth
+                extra = [(b"PLTE", tier_rng.integers(0, 256, 3 * entries,
+                                                     dtype=np.uint8).tobytes()),
+                         (b"tRNS", bytes(range(0, 256, 5))[:max(1, entries // 2)])]
+            data = cycled_png(values, depth, colour, extra)
+            require(native_codec.png_decode16(data) is not None,
+                    f"gip_png_decode16 refused colour type {colour} at depth {depth}")
+            plain16 = codec._png_plain16(codec._png_chunks(data))
+            require(np.array_equal(codec.decode_png16(data), plain16),
+                    f"zlib tier through gip_png_decode16 differs from its plain "
+                    f"path: colour type {colour}, depth {depth}")
+            require(np.array_equal(native_codec.png_decode(data),
+                                   (plain16 >> 8).astype(np.uint8)),
+                    f"gip_png_decode is not the high bytes of the plain path: "
+                    f"colour type {colour}, depth {depth}")
+            tier_cases += 1
+    print(f"zlib PNG tier: through gip_png_decode16 == its plain path, "
+          f"gip_png_decode == its high bytes, on {tier_cases} PNGs (every "
+          f"colour type and depth, filter types 0-4)")
+    # The draws an earlier check of this phase took from `rng`: taking them
+    # keeps every later input (the API's images, the scene, the batch) the
+    # bytes that earlier runs of this script used, so that their codec and
+    # request times, and the answer's PNG bytes, compare on the same data.
     for bpp in range(1, 9):
-        height, row_bytes = 40, 97 * bpp
-        raw = rng.integers(0, 256, size=(height, row_bytes + 1), dtype=np.uint8)
-        raw[:, 0] = np.arange(height) % 5
-        want = unfilter_plain(raw.reshape(-1), height, row_bytes, bpp)
-        require(np.array_equal(native_codec.png_unfilter(
-            raw.reshape(-1), height, row_bytes, bpp), want),
-            f"png unfilter helper differs from its plain version at bpp {bpp}")
-    rows = rng.integers(0, 256, size=(7, 33 * 3), dtype=np.uint8)
-    sub = rows.copy()
-    sub[:, 3:] -= rows[:, :-3]
-    require(np.array_equal(native_codec.png_filter_rows(
-        rows.reshape(7, 33, 3), 1)[:, 1:], sub), "png Sub filter rows")
-    print("png codec helper: unfilter == plain for filter types 0-4, "
-          "bpp 1-8; Sub rows == numpy")
+        rng.integers(0, 256, size=(40, 97 * bpp + 1), dtype=np.uint8)
+    rng.integers(0, 256, size=(7, 33 * 3), dtype=np.uint8)
 
-    # The upload decoders (JPEG and the native formats through the library
-    # of native/src, PNG through the port's codec) on the committed
-    # fixtures, against the pixels the JAX package decoded from them (its
-    # native tier for JPEG): any difference fails.
-    cxx_version = subprocess.run([build.cxx_path(), "--version"], capture_output=True,
-                                 text=True, check=True).stdout.splitlines()[0]
-    decoder_sources = [p for p in files.CARRIED if p.endswith(".cpp")]
-    print(f"decoder library: built from {', '.join(decoder_sources)} "
-          f"by {cxx_version} in {build.BUILD_SECONDS.get(build.DECODERS, 0.0):.1f} s "
-          f"(phase 2, beside nvcc)")
+    # The upload decoders (PNG, JPEG and the native formats through the
+    # codec's library of native/src) on the committed fixtures, against the
+    # pixels the JAX package decoded from them (its native tier for JPEG):
+    # any difference fails.
     expected = np.load(f"{FORMAT_FIXTURES}/expected.npz")
     fixture_diffs = {}
     for name in sorted(expected.files):

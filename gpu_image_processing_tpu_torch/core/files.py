@@ -1,6 +1,6 @@
 """The repository's files that the port reads from outside its own modules.
 
-A wheel carries the sources of the upload decoders (`CARRIED`) under
+A wheel carries the sources of the codec's library (`CARRIED`) under
 `CARRIED_DIR`, at their paths from the repository's root: `setup.py` copies
 them there when the wheel is built.  A checkout has them at its root.  The
 other files the tools read from outside the package only a checkout has:
@@ -19,9 +19,10 @@ CARRIED_DIR = PACKAGE_DIR / "_carried"
 #: checkout, else the installation's (site-packages, or a `--target`).
 ROOT_DIR = PACKAGE_DIR.parent
 #: The repository files a wheel carries, from the repository's root; the
-#: decoders' library is built from them (ops/cuda/build.py).
-CARRIED = ("native/src/gip_jpeg.cpp", "native/src/gip_formats.cpp",
-           "native/src/gip_limits.h")
+#: codec's library (PNG on zlib, the upload decoders, the file writers) is
+#: built from them (ops/cuda/build.py).
+CARRIED = ("native/src/gip_codec.cpp", "native/src/gip_jpeg.cpp",
+           "native/src/gip_formats.cpp", "native/src/gip_limits.h")
 
 
 def repo_file(relative: str, needed_for: str = "") -> Path:

@@ -14,16 +14,16 @@ cache directory (`$XDG_CACHE_HOME`, by default `~/.cache`).
 The launch functions take `tensor.data_ptr()`, sizes and PyTorch's current
 stream as plain integers, launch on that stream without synchronising, and
 return `cudaGetLastError()`; `check` turns a non-zero code into an error.
-The codec's libraries (utils/native_codec.py) are host code: the PNG
-tier's scanline helper `png_codec.cpp` beside this module
-(`HOST_SOURCES`), and the image decoders `native/src/gip_jpeg.cpp` and
-`native/src/gip_formats.cpp`, which need only standard headers and are
-compiled where they stand into one library, `DECODERS`: in a checkout at
-its root, in an installed package from the copies it carries
-(core/files.py).  Both are built with the host C++ compiler (`CXX_FLAGS`),
-not nvcc, so that they build on any host with a C++ compiler, the card's
-or not.  They land in `BUILD_DIR` beside the kernels, keyed the same way,
-as does one executable: the HTTP load generator of the serving checks
+The codec's library (utils/native_codec.py) is host code: the JAX
+package's C++ codec tier, `native/src/gip_codec.cpp` (PNG on zlib, the
+file writers), `gip_jpeg.cpp` and `gip_formats.cpp`, compiled where they
+stand into one library, `DECODERS`: in a checkout at its root, in an
+installed package from the copies it carries (core/files.py).  It is
+built with the host C++ compiler (`CXX_FLAGS`, then `-lz`), not nvcc, so
+that it builds on any host with a C++ compiler and zlib's header and
+library, the card's or not; a host without them fails the build.  It lands
+in `BUILD_DIR` beside the kernels, keyed the same way, as does one
+executable: the HTTP load generator of the serving checks
 (`tools/silicon_ci.py`), `native/tools/loadgen.cpp` compiled where it
 stands (`LOADGEN`, `build_loadgen`), in a checkout only.
 
@@ -65,16 +65,14 @@ def _build_dir() -> Path:
 
 
 BUILD_DIR = _build_dir()
-#: The library of the upload decoders, built from `CARRIED`: the JAX
-#: package's C++ codec tier in `native/src` (two sources and the header they
-#: include), compiled as it stands.
+#: The codec's library (PNG, the upload decoders, the file writers), built
+#: from `CARRIED`: the JAX package's C++ codec tier in `native/src` (three
+#: sources and the header they include), compiled as it stands.
 DECODERS = "gip_decoders"
 #: The libraries built by nvcc: the kernels.
 SOURCES = ("blur", "sobel")
-#: The host helpers beside this module (`<name>.cpp`), built by CXX_FLAGS.
-HOST_SOURCES = ("png_codec",)
 #: Every library the port builds.
-LIBRARIES = (*SOURCES, *HOST_SOURCES, DECODERS)
+LIBRARIES = (*SOURCES, DECODERS)
 #: The load generator, an executable, and its source in the repository.
 LOADGEN = "loadgen"
 LOADGEN_SOURCE = "native/tools/loadgen.cpp"
@@ -87,9 +85,12 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-#: The host libraries: plain C++17, no CUDA.  `--no-undefined` makes a missing
+#: The host library: plain C++17, no CUDA.  `--no-undefined` makes a missing
 #: symbol a build error, not a failure at load time.
 CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-Wl,--no-undefined")
+#: The libraries `DECODERS` links, after its sources: zlib, for the PNG
+#: tier of gip_codec.cpp (`GIP_HAVE_LIBDEFLATE` stays undefined).
+CXX_LIBS = ("-lz",)
 #: The load generator: plain C++17 with POSIX threads.
 EXE_FLAGS = ("-std=c++17", "-O2", "-pthread")
 
@@ -149,11 +150,9 @@ def _repo_sources(name: str) -> list[Path]:
 def _inputs(name: str) -> tuple[tuple[str, ...], list[Path]]:
     """(flags, every file the library is built from) of library `name`."""
     if name == DECODERS:
-        return CXX_FLAGS, _repo_sources(name)
+        return (*CXX_FLAGS, *CXX_LIBS), _repo_sources(name)
     if name == LOADGEN:
         return EXE_FLAGS, _repo_sources(name)
-    if name in HOST_SOURCES:
-        return CXX_FLAGS, [SOURCE_DIR / f"{name}.cpp"]
     return NVCC_FLAGS, [SOURCE_DIR / f"{name}.cu",
                         *sorted(SOURCE_DIR.glob("*.cuh"))]
 
@@ -170,13 +169,11 @@ def _source_hash(name: str) -> str:
 def _command(name: str, target: str) -> list[str]:
     if name == DECODERS:
         return [cxx_path(), *CXX_FLAGS, "-o", target,
-                *(str(p) for p in _repo_sources(name) if p.suffix == ".cpp")]
+                *(str(p) for p in _repo_sources(name) if p.suffix == ".cpp"),
+                *CXX_LIBS]
     if name == LOADGEN:
         return [cxx_path(), *EXE_FLAGS, "-o", target,
                 *map(str, _repo_sources(name))]
-    if name in HOST_SOURCES:
-        return [cxx_path(), *CXX_FLAGS, "-o", target,
-                str(SOURCE_DIR / f"{name}.cpp")]
     return [nvcc_path(), *NVCC_FLAGS, "-o", target,
             str(SOURCE_DIR / f"{name}.cu")]
 
@@ -229,7 +226,7 @@ def build_loadgen() -> Path:
 
 
 def load_host(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
-    """Library `name` (`<name>.cu`, a host source, or `DECODERS`), built
+    """Library `name` (`<name>.cu` or `DECODERS`), built
     first if needed; raises with the compiler's stderr if the build fails.
 
     `signatures` maps each function to its ctypes argument types; every one

@@ -64,7 +64,10 @@ def port_in_use(port: int) -> bool:
 
 
 def pid_alive(pid: int) -> bool:
-    """True while `pid` runs (a zombie, exited but not reaped, does not)."""
+    """True while `pid` runs.  A zombie (exited, not reaped) has stopped
+    once its last thread has: its main thread turns zombie first, while
+    another thread (a CUDA driver's, tearing down) may still hold the
+    process's sockets for a few hundred ms."""
     try:
         os.kill(pid, 0)
     except ProcessLookupError:
@@ -72,10 +75,12 @@ def pid_alive(pid: int) -> bool:
     except PermissionError:
         return True
     try:
-        stat = Path(f"/proc/{pid}/stat").read_text()
+        status = dict(line.split(":", 1) for line in
+                      Path(f"/proc/{pid}/status").read_text().splitlines())
     except OSError:
         return True
-    return stat.rsplit(")", 1)[1].split()[0] != "Z"
+    return not (status["State"].split()[0] == "Z"
+                and int(status["Threads"]) <= 1)
 
 
 def _files(run_dir: str, name: str) -> tuple[Path, Path]:

@@ -11,26 +11,34 @@ Uploads are routed as the JAX package routes them without Pillow (its
 tier on a host without Pillow, such as the card's machine):
 
 * first the native PNG tier, `native_codec.png_decode` (tier
-  ``native_png``), as the JAX package tries `gip_png_decode` first: every
-  bit depth, colour type and Adam7, reduced as stb_image reduces them
-  (16-bit samples keep their high byte);
-* a PNG the native tier refuses (a palette over 256 entries, a tRNS
-  longer than the palette, ...): the codec below, on the standard
-  library's `zlib` (tier ``zlib_png``), which reduces to 8 bits as the
-  JAX package's Pillow tier does (16-bit grey rescales by its maximum,
-  `_pil_to_rgb` there) and checks the chunks' CRCs;
+  ``native_png``), `gip_png_decode` of native/src/gip_codec.cpp as the JAX
+  package tries it first: every bit depth, colour type and Adam7, reduced
+  as stb_image reduces them (16-bit samples keep their high byte);
+* a PNG the native tier refuses: the zlib tier below (tier ``zlib_png``),
+  which stands in for the JAX package's Pillow tier.  It reduces to 8 bits
+  as Pillow does there (16-bit grey rescales by its maximum, `_pil_to_rgb`)
+  and checks the chunks' CRCs, IEND, the header and the pixel cap
+  `MAX_PIXELS`;
 * JPEG (baseline and progressive), then by magic bytes HDR and PIC, then GIF, BMP, PSD and
   binary PNM, and last TGA, which has no magic bytes (`_tga_plausible`):
   the C++ decoders of `native/src` through utils/native_codec.py (tiers
   ``native_jpeg`` ... ``native_tga``), built at first use.
 
-`load_image_file` (the upload endpoint and the image-file CLI) keeps the
-Pillow tier's reductions, as the JAX package's file loaders open PNG with
-Pillow.  Every PNG answer is `native_codec.png_encode(img, 1)`: the Sub
-filter and zlib level 1 with run-length matching.  Both tiers unfilter
-rows in the host C++ helper `ops/cuda/png_codec.cpp`, built at first use
-by ops/cuda/build.py with the host C++ compiler; a failed build raises.
-`unfilter_plain` (numpy and Python) is its plain version, for the tests.
+`load_image_file` (the upload endpoint and the image-file CLI),
+`decode_png16` and `decode_file_16` read PNG through the zlib tier too, as
+the JAX package's file loaders open PNG with Pillow.  The tier runs its own
+checks, then takes the samples from `native_codec.png_decode16`
+(`gip_png_decode16`) for `decode_png16` and for 16-bit grey, which it
+rescales by its maximum, and from `native_codec.png_decode`
+(`gip_png_decode`, the same decoder's high bytes) for every other 8-bit
+result, wherever they accept the file.  They accept and refuse the same
+files.  Only a file the checks accept and gip refuses is inflated here
+with Python's `zlib` and unfiltered by `unfilter_plain`, in numpy and
+Python, row by row (`_png_samples`): a palette of more than 256 entries,
+a tRNS chunk longer than the palette or before it, image data that
+inflates past the size its header declares or whose stream does not end.  Every PNG answer is
+`native_codec.png_encode(img, 1)`: `gip_png_encode`, the Sub filter and
+zlib level 1 with run-length matching.
 """
 
 from __future__ import annotations
@@ -52,9 +60,17 @@ class ImageCodecError(ValueError):
     pass
 
 
-_PNG_SIGNATURE = native_codec.PNG_SIGNATURE
-#: Decode-bomb guard: the largest image a PNG may declare.
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+#: Decode-bomb guard of the zlib tier: the largest image a PNG may declare.
 MAX_PIXELS = 1 << 28
+#: Samples a pixel of each PNG colour type, and the depths it allows (PNG
+#: specification, table 11.1).
+SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+          6: (8, 16)}
+#: Adam7 passes: (x0, y0, dx, dy).
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 # PNG chunk types that cannot change how decoded pixels render; an RGB PNG
 # made only of these may pass through as the original image unchanged.
@@ -113,8 +129,9 @@ def decode_tier_counts() -> dict[str, int]:
 def unfilter_plain(raw: np.ndarray, height: int, row_bytes: int,
                    bpp: int) -> np.ndarray:
     """(height, row_bytes) uint8 from the inflated scanlines `raw`
-    (height * (1 + row_bytes) bytes).  None, Sub and Up run in numpy;
-    Average and Paeth byte by byte."""
+    (height * (1 + row_bytes) bytes), for the files gip's decoders
+    refuse.  None, Sub and Up run in numpy; Average and Paeth byte by
+    byte, which takes seconds on a photograph."""
     lines = raw.reshape(height, row_bytes + 1)
     out = np.empty((height, row_bytes), np.uint8)
     prev = np.zeros(row_bytes, np.uint8)
@@ -163,7 +180,7 @@ class PngHeader:
 
 def _chunks(data: bytes):
     """(type, payload) of each chunk, CRCs checked, through IEND."""
-    pos = len(_PNG_SIGNATURE)
+    pos = len(PNG_SIGNATURE)
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
         end = pos + 12 + length
@@ -180,16 +197,23 @@ def _chunks(data: bytes):
     raise _fail("PNG without IEND")
 
 
-def _png_samples(data: bytes) -> tuple[np.ndarray, PngHeader, np.ndarray]:
-    """(samples, header, palette) of a PNG: (H, W, S) values at the image's
-    own depth (uint16 at 16 bits, uint8 below; palette indices for colour
-    type 3), Adam7 passes put in place; for colour type 3, the (N, 3) uint8
-    palette, or (N, 4) with the alpha of a tRNS chunk (255 past its
-    entries)."""
-    if not data.startswith(_PNG_SIGNATURE):
+@dataclass(frozen=True)
+class _PngChunks:
+    """What the zlib tier reads of a PNG's chunks."""
+    header: PngHeader
+    palette: Optional[np.ndarray]   # (N, 3) uint8, for colour type 3
+    trns: Optional[bytes]
+    idat: list
+
+
+def _png_chunks(data: bytes) -> _PngChunks:
+    """The zlib tier's checks of a PNG, before any pixel is read: the
+    signature, every chunk's CRC through IEND, the header (depth, colour
+    type, interlace method, at most `MAX_PIXELS` pixels), PLTE for a
+    palette."""
+    if not data.startswith(PNG_SIGNATURE):
         raise _fail("not a PNG")
-    header = palette = None
-    trns = None
+    header = palette = trns = None
     idat = []
     for kind, payload in _chunks(data):
         if kind == b"IHDR":
@@ -208,19 +232,47 @@ def _png_samples(data: bytes) -> tuple[np.ndarray, PngHeader, np.ndarray]:
             idat.append(payload)
     if header is None:
         raise _fail("PNG without IHDR")
-    width, height, depth, colour = (header.width, header.height, header.depth,
-                                    header.colour)
-    if depth not in native_codec.DEPTHS.get(colour, ()):
-        raise _fail(f"PNG of bit depth {depth} and colour type {colour}")
+    if header.depth not in DEPTHS.get(header.colour, ()):
+        raise _fail(f"PNG of bit depth {header.depth} and colour type "
+                    f"{header.colour}")
     if header.interlace not in (0, 1):
         raise _fail(f"PNG interlace method {header.interlace}")
-    if not 1 <= width * height <= MAX_PIXELS:
-        raise _fail(f"PNG of {width}x{height} pixels")
-    if colour == 3 and palette is None:
+    if not 1 <= header.width * header.height <= MAX_PIXELS:
+        raise _fail(f"PNG of {header.width}x{header.height} pixels")
+    if header.colour == 3 and palette is None:
         raise _fail("palette PNG without PLTE")
-    samples = native_codec.SAMPLES[colour]
+    return _PngChunks(header, palette, trns, idat)
+
+
+def png_unpack(packed: np.ndarray, width: int, samples: int,
+               depth: int) -> np.ndarray:
+    """(rows, row_bytes) unfiltered bytes -> (rows, width, samples) values at
+    their own depth (big-endian uint16 pairs to uint16 at depth 16)."""
+    rows = packed.shape[0]
+    if depth == 16:
+        return packed[:, :width * samples * 2].view(">u2").astype(
+            np.uint16).reshape(rows, width, samples)
+    if depth == 8:
+        return packed[:, :width * samples].reshape(rows, width, samples)
+    bits = np.unpackbits(packed, axis=1)[:, :width * depth]
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    values = (bits.reshape(rows, width, depth) * weights).sum(
+        axis=2, dtype=np.uint8)
+    return values[:, :, None]
+
+
+def _png_samples(png: _PngChunks) -> tuple[np.ndarray, Optional[np.ndarray]]:
+    """(samples, palette) of a PNG that gip's decoders refuse, inflated
+    with Python's zlib and unfiltered by `unfilter_plain`: (H, W, S) values
+    at the image's own depth (uint16 at 16 bits, uint8 below; palette
+    indices for colour type 3), Adam7 passes put in place; for colour type
+    3, the (N, 3) uint8 palette, or (N, 4) with the alpha of a tRNS chunk
+    (255 past its entries)."""
+    header, palette = png.header, png.palette
+    width, height, depth = header.width, header.height, header.depth
+    samples = SAMPLES[header.colour]
     bpp = max(1, samples * depth // 8)
-    passes = native_codec.ADAM7 if header.interlace else ((0, 0, 1, 1),)
+    passes = ADAM7 if header.interlace else ((0, 0, 1, 1),)
     geometry = []   # (x0, y0, dx, dy, pass width, pass height, row bytes)
     for x0, y0, dx, dy in passes:
         pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
@@ -230,50 +282,74 @@ def _png_samples(data: bytes) -> tuple[np.ndarray, PngHeader, np.ndarray]:
     expected = sum(ph * (1 + rb) for *_, ph, rb in geometry)
     inflater = zlib.decompressobj()
     try:
-        raw = inflater.decompress(b"".join(idat), expected)
+        raw = np.frombuffer(inflater.decompress(b"".join(png.idat), expected),
+                            np.uint8)
     except zlib.error as exc:
         raise _fail(f"corrupt PNG data ({exc})") from None
-    if len(raw) != expected:
+    if raw.size != expected:
         raise _fail("truncated PNG data")
     out = np.empty((height, width, samples),
                    np.uint16 if depth == 16 else np.uint8)
     pos = 0
     for x0, y0, dx, dy, pw, ph, row_bytes in geometry:
         size = ph * (1 + row_bytes)
-        try:
-            packed = native_codec.png_unfilter(
-                memoryview(raw)[pos:pos + size], ph, row_bytes, bpp)
-        except ValueError as exc:
-            raise _fail(str(exc)) from None
-        out[y0::dy, x0::dx] = native_codec.png_unpack(packed, pw, samples,
-                                                      depth)
+        packed = unfilter_plain(raw[pos:pos + size], ph, row_bytes, bpp)
+        out[y0::dy, x0::dx] = png_unpack(packed, pw, samples, depth)
         pos += size
-    if colour == 3:
+    if header.colour == 3:
         if int(out.max()) >= len(palette):
             raise _fail("palette index out of range")
-        if trns is not None:
+        if png.trns is not None:
             alpha = np.full((len(palette), 1), 255, np.uint8)
-            alpha[:len(trns), 0] = np.frombuffer(trns[:len(palette)], np.uint8)
+            alpha[:len(png.trns), 0] = np.frombuffer(
+                png.trns[:len(palette)], np.uint8)
             palette = np.hstack([palette, alpha])
-    return out, header, palette
+    return out, palette
+
+
+def _png_plain16(png: _PngChunks) -> np.ndarray:
+    """`decode_png16` through the plain path: `_png_samples`, widened as
+    gip_png_decode16 widens them."""
+    values, palette = _png_samples(png)
+    header = png.header
+    if header.colour == 3:
+        values = palette[values[..., 0]]
+    elif header.depth == 16:
+        return values
+    elif header.depth < 8:
+        values = values * np.uint8(255 // ((1 << header.depth) - 1))
+    return values.astype(np.uint16) * np.uint16(257)
+
+
+def _png16(png: _PngChunks, data: bytes) -> np.ndarray:
+    """`decode_png16` of a PNG that passed the tier's checks: the samples of
+    `native_codec.png_decode16` where it accepts the file, else of the plain
+    path."""
+    values = native_codec.png_decode16(data)
+    return values if values is not None else _png_plain16(png)
 
 
 def _decode_png(data: bytes) -> tuple[np.ndarray, PngHeader]:
-    """`decode_png` and the PNG's header."""
-    values, header, palette = _png_samples(data)
-    depth = header.depth
-    if header.colour == 3:
-        return palette[values[..., 0], :3], header
-    if depth == 16 and header.colour == 0:
+    """`decode_png` and the PNG's header: the tier's checks, then 16-bit
+    grey from `_png16`, every other image from `native_codec.png_decode`
+    (the high byte of each sample gip_png_decode16 reads, without its
+    16-bit image) or, where that refuses the file, the plain path."""
+    png = _png_chunks(data)
+    header = png.header
+    if header.depth == 16 and header.colour == 0:
         # The JAX package's Pillow tier opens 16-bit grey as mode I;16 and
         # rescales it by its maximum in float32, then truncates
         # (_pil_to_rgb).
+        values = _png16(png, data)
         scale = np.float32(255.0 / max(float(values.max()), 1.0))
         return (values.astype(np.float32) * scale).astype(np.uint8), header
-    if depth == 16:
-        return (values >> 8).astype(np.uint8), header
-    if depth < 8:
-        values = values * np.uint8(255 // ((1 << depth) - 1))
+    values = native_codec.png_decode(data)
+    if values is None:
+        # 16-bit samples keep their high byte; lower depths were widened as
+        # v * 257, whose high byte is v.
+        values = (_png_plain16(png) >> 8).astype(np.uint8)
+    if header.colour == 3:
+        values = np.ascontiguousarray(values[..., :3])
     return values, header
 
 
@@ -289,15 +365,9 @@ def decode_png16(data: bytes) -> np.ndarray:
     """PNG bytes -> (H, W, C) uint16, as the JAX package's native tier reads
     them (`png_decode16`, the stbi_load_16 analog): 16-bit samples as
     stored; lower depths after the grey range expansion or the palette
-    lookup, as v * 257; a palette with a tRNS chunk gives RGBA."""
-    values, header, palette = _png_samples(data)
-    if header.colour == 3:
-        values = palette[values[..., 0]]
-    elif header.depth == 16:
-        return values
-    elif header.depth < 8:
-        values = values * np.uint8(255 // ((1 << header.depth) - 1))
-    return values.astype(np.uint16) * np.uint16(257)
+    lookup, as v * 257; a palette with a tRNS chunk gives RGBA.  The zlib
+    tier's checks first, as the module docstring says."""
+    return _png16(_png_chunks(data), data)
 
 
 def encode_png(img: np.ndarray) -> bytes:
@@ -360,7 +430,7 @@ def _tga_plausible(raw: bytes) -> bool:
 
 def _decode_raw(raw: bytes) -> tuple[np.ndarray, str, Optional[PngHeader]]:
     """(H, W, C) uint8, its tier, and the PNG header for a PNG."""
-    if raw.startswith(_PNG_SIGNATURE):
+    if raw.startswith(PNG_SIGNATURE):
         arr, header = _decode_png(raw)
         return arr, "zlib_png", header
     if len(raw) > 3 and raw[:2] == b"\xff\xd8":
@@ -534,11 +604,13 @@ def load_image_file(data: bytes) -> tuple[np.ndarray, int, int]:
 
 def decode_file_16(data: bytes) -> np.ndarray:
     """Any upload -> HWC uint16, the stbi_load_16_from_memory analog of the
-    JAX package: PNG (`decode_png16`) and PSD at their own 16 bits where
-    the file carries them; every other format, and every 8-bit file, as
+    JAX package: PNG (`native_codec.png_decode16` first, as the JAX package
+    reads it, then the zlib tier's `decode_png16`) and PSD at their own 16
+    bits where the file carries them; every other format, and every 8-bit file, as
     `load_image_file`'s pixels v -> v * 257 (stb's stbi__convert_8_to_16)."""
-    if data.startswith(_PNG_SIGNATURE):
-        return decode_png16(data)
+    if data.startswith(PNG_SIGNATURE):
+        arr = native_codec.png_decode16(data)
+        return arr if arr is not None else decode_png16(data)
     if data[:4] == b"8BPS":
         arr = native_codec.psd_decode16(data)
         if arr is not None:

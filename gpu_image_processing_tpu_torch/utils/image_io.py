@@ -7,12 +7,13 @@ its native codec (`gip_ppm_write`, `gip_ppm_read`, `gip_bmp_write`,
 `gip_tga_write`, `gip_tga_read` of native/src/gip_codec.cpp).  Here:
 
 * writers: `.png` through `native_codec.png_encode` (Sub filter, zlib
-  level 1 with run-length matching); `.ppm`/`.pgm`, `.bmp` and `.tga` in
-  numpy, byte for byte what the gip_*_write functions write; `.hdr`
-  through `native_codec.hdr_write`; `.jpg`/`.jpeg` through
-  `native_codec.jpeg_encode` at quality 90, with the JAX CLI's channel rule
-  for a host without Pillow.  Any other extension raises: the JAX CLI's
-  last tier writes it with Pillow, which has no counterpart here.
+  level 1 with run-length matching); `.ppm`/`.pgm`, `.bmp`, `.tga` and
+  `.hdr` through `native_codec.write_file`, the same gip_*_write functions
+  of the same library; `.jpg`/`.jpeg` through `native_codec.jpeg_encode`
+  at quality 90, with the JAX CLI's channel rule for a host without
+  Pillow.  A channel count a writer refuses raises ValueError; any other
+  extension raises too: the JAX CLI's last tier writes it with Pillow,
+  which has no counterpart here.
 * readers: `.ppm`/`.pgm` and `.tga` from the file's bytes through the
   native decoders (`pnm_decode`, `tga_decode`; gip_tga_read is
   gip_tga_decode over the file), alpha stripped as the JAX CLI strips it;
@@ -23,7 +24,6 @@ its native codec (`gip_ppm_write`, `gip_ppm_read`, `gip_bmp_write`,
 from __future__ import annotations
 
 import os
-import struct
 
 import numpy as np
 
@@ -34,75 +34,31 @@ from .image import load_image_file
 #: CLI writes with.
 JPEG_QUALITY = 90
 WRITERS = (".png", ".ppm", ".pgm", ".bmp", ".tga", ".hdr", ".jpg", ".jpeg")
-
-
-def _hwc(arr: np.ndarray) -> np.ndarray:
-    arr = np.ascontiguousarray(arr, dtype=np.uint8)
-    return arr[:, :, None] if arr.ndim == 2 else arr
-
-
-def ppm_bytes(arr: np.ndarray) -> bytes:
-    """`gip_ppm_write`: P5 for one channel, P6 for three, maxval 255."""
-    arr = _hwc(arr)
-    h, w, c = arr.shape
-    if c not in (1, 3):
-        raise ValueError(f"PPM/PGM takes 1 or 3 channels, not {c}")
-    return f"P{5 if c == 1 else 6}\n{w} {h}\n255\n".encode() + arr.tobytes()
-
-
-def bmp_bytes(arr: np.ndarray) -> bytes:
-    """`gip_bmp_write`: 24-bit BGR rows, bottom-up, each padded to 4 bytes;
-    grey is replicated and alpha dropped."""
-    arr = _hwc(arr)
-    h, w, c = arr.shape
-    if c not in (1, 3, 4) or not h or not w:
-        raise ValueError(f"BMP takes 1, 3 or 4 channels, not shape {arr.shape}")
-    row = (w * 3 + 3) & ~3
-    if 54 + row * h > 0xFFFFFFFF:
-        raise ValueError(f"a {w}x{h} image is too large for a BMP")
-    rgb = np.repeat(arr, 3, axis=2) if c == 1 else arr[:, :, :3]
-    pixels = np.zeros((h, row), np.uint8)
-    pixels[:, :w * 3] = rgb[::-1, :, ::-1].reshape(h, w * 3)
-    header = struct.pack("<2sIIIIiiHHII16x", b"BM", 54 + row * h, 0, 54, 40,
-                         w, h, 1, 24, 0, row * h)
-    return header + pixels.tobytes()
-
-
-def tga_bytes(arr: np.ndarray) -> bytes:
-    """`gip_tga_write`: uncompressed, top-down; type 3 (grey) for one
-    channel, else type 2 with BGR or BGRA pixels."""
-    arr = _hwc(arr)
-    h, w, c = arr.shape
-    if c not in (1, 3, 4) or not 0 < w <= 0xFFFF or not 0 < h <= 0xFFFF:
-        raise ValueError(f"TGA takes 1, 3 or 4 channels and sides up to "
-                         f"65535, not shape {arr.shape}")
-    header = bytearray(18)
-    header[2] = 3 if c == 1 else 2
-    header[12:16] = struct.pack("<HH", w, h)
-    header[16] = 8 * c
-    header[17] = 0x20 | (8 if c == 4 else 0)
-    pixels = arr if c == 1 else arr[:, :, [2, 1, 0, 3][:c]]
-    return bytes(header) + np.ascontiguousarray(pixels).tobytes()
+#: The extensions a gip_<kind>_write function writes to the file.
+_FILE_WRITERS = {".ppm": "ppm", ".pgm": "ppm", ".bmp": "bmp", ".tga": "tga",
+                 ".hdr": "hdr"}
 
 
 def save_image(path: str, arr: np.ndarray) -> None:
     """Write `arr` (HWC uint8) in the format `path`'s extension names."""
     ext = os.path.splitext(path)[1].lower()
-    arr = _hwc(arr)
-    if ext == ".hdr":
-        if not native_codec.hdr_write(path, arr):
-            raise RuntimeError(f"native HDR write failed: {path}")
+    arr = np.ascontiguousarray(arr, dtype=np.uint8)
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    kind = _FILE_WRITERS.get(ext)
+    if kind is not None:
+        code = native_codec.write_file(kind, path, arr)
+        if code == 1:
+            raise ValueError(f"gip_{kind}_write does not write an image of "
+                             f"shape {arr.shape} (see native_codec.write_file)")
+        if code:
+            raise OSError(f"native {kind.upper()} write failed (code {code}): "
+                          f"{path}")
         return
     if ext == ".png":
         data = native_codec.png_encode(arr)
         if data is None:
             raise RuntimeError(f"cannot write a PNG of shape {arr.shape}")
-    elif ext in (".ppm", ".pgm"):
-        data = ppm_bytes(arr)
-    elif ext == ".bmp":
-        data = bmp_bytes(arr)
-    elif ext == ".tga":
-        data = tga_bytes(arr)
     elif ext in (".jpg", ".jpeg"):
         if arr.shape[2] not in (1, 3):
             raise RuntimeError(

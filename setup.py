@@ -2,8 +2,9 @@
 the repository files the PyTorch port builds from at run time, which lie
 outside its package.
 
-`build_py` copies each file of `CARRIED` (the upload decoders' C++ sources
-in `native/src`) into the built package at
+`build_py` copies each file of `CARRIED` (the C++ sources of the codec's
+library in `native/src`: PNG on zlib, the upload decoders, the file
+writers) into the built package at
 `gpu_image_processing_tpu_torch/_carried/<its path from the root>`, where
 `gpu_image_processing_tpu_torch/core/files.py` looks first.  The source tree
 is not touched.  Build offline, from the root of the repository:

@@ -4,8 +4,10 @@ same pixels.
 
 The PNGs are written here, by a small encoder that applies one chosen
 scanline filter (or all five in turn), so every filter type and colour type
-is exercised.  The C++ unfilter helper (ops/cuda/png_codec.cpp) builds with
-the host C++ compiler, so it runs here against its plain version.
+is exercised.  The port reads them through `gip_png_decode16` of
+native/src/gip_codec.cpp, which builds here with the host C++ compiler and
+zlib; tests/test_torch_png_tier.py holds that against the zlib tier's plain
+path.
 """
 
 import base64
@@ -18,9 +20,7 @@ import pytest
 from PIL import Image
 
 from gpu_image_processing_tpu.utils import image as jax_codec
-from gpu_image_processing_tpu_torch.ops.cuda import build
 from gpu_image_processing_tpu_torch.utils import image as codec
-from gpu_image_processing_tpu_torch.utils import native_codec
 
 FILTERS = [0, 1, 2, 3, 4, "mixed"]
 SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -103,7 +103,7 @@ def test_decode_matches_jax_codec(rng, filt, colour, shape):
     np.testing.assert_array_equal(got, want)
     if colour == 2:
         np.testing.assert_array_equal(got, arr)
-    # The plain unfilter served this call; the raw decode keeps channels.
+    # The zlib tier's decode keeps the channels.
     np.testing.assert_array_equal(codec.decode_png(png), arr)
 
 
@@ -231,48 +231,3 @@ def test_upload_decode_matches_jax(rng, colour):
     want = jax_codec.load_image_file(png)
     assert got[1:] == want[1:]
     np.testing.assert_array_equal(got[0], want[0])
-
-
-@pytest.mark.parametrize("has_nvcc", [False, True])
-def test_host_unfilter_is_chosen_once_from_nvcc(monkeypatch, rng, has_nvcc):
-    """Both PNG tiers unfilter through the C++ helper, whether or not nvcc
-    is there: it is host C++, built with the host compiler.  One call a
-    non-interlaced image, in `decode_png` (the zlib tier) and in
-    `png_decode` (the native tier)."""
-    def nvcc_path():
-        if not has_nvcc:
-            raise RuntimeError("nvcc not found")
-        return "/usr/bin/nvcc"
-
-    monkeypatch.setattr(build, "nvcc_path", nvcc_path)
-    calls = []
-    real = native_codec.png_unfilter
-
-    def counting(*args, **kwargs):
-        calls.append(args[1:])
-        return real(*args, **kwargs)
-
-    monkeypatch.setattr(native_codec, "png_unfilter", counting)
-    arr = rng.integers(0, 256, size=(6, 5, 3), dtype=np.uint8)
-    png = make_png(arr.reshape(6, -1), 5, 2, filt="mixed")
-    np.testing.assert_array_equal(codec.decode_png(png), arr)
-    assert calls == [(6, 15, 3)]
-    np.testing.assert_array_equal(native_codec.png_decode(png), arr)
-    assert calls == [(6, 15, 3)] * 2
-
-
-def test_native_unfilter_matches_plain(rng):
-    """The C++ helper's rows, specialized by filter type, equal the numpy
-    plain version, every filter type in turn, 1 to 8 bytes a pixel (grey 1
-    and 2, RGB 3 and 6, grey + alpha 2 and 4, RGBA 4 and 8)."""
-    for bpp in range(1, 9):
-        height, row_bytes = 9, 5 * bpp
-        raw = rng.integers(0, 256, size=(height, row_bytes + 1), dtype=np.uint8)
-        raw[:, 0] = np.arange(height) % 5
-        want = codec.unfilter_plain(raw.reshape(-1), height, row_bytes, bpp)
-        np.testing.assert_array_equal(native_codec.png_unfilter(
-            raw.reshape(-1), height, row_bytes, bpp), want)
-    bad = np.zeros((2, 4), np.uint8)
-    bad[1, 0] = 7
-    with pytest.raises(ValueError, match="row 1"):
-        native_codec.png_unfilter(bad.reshape(-1), 2, 3, 1)

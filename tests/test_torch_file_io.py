@@ -2,10 +2,14 @@
 package's native ones (`gip_ppm_write`, `gip_bmp_write`, `gip_tga_write`,
 `gip_ppm_read`, `gip_tga_read` of native/src/gip_codec.cpp), built here
 from `native/src` and called through ctypes as `scripts/filter_image.py`
-calls them: the same bytes written, the same pixels read.
+calls them: the same bytes written, the same pixels read.  The port writes
+through the same functions in its own library; the numpy writers below are
+their plain versions, which both are held to.
 """
 
 import ctypes
+import re
+import struct
 
 import numpy as np
 import pytest
@@ -49,9 +53,58 @@ def _gip_read(lib, name: str, path):
     return np.frombuffer(raw, np.uint8).reshape(h.value, w.value, c.value)
 
 
-WRITERS = {"ppm": ("gip_ppm_write", image_io.ppm_bytes, (1, 3)),
-           "bmp": ("gip_bmp_write", image_io.bmp_bytes, (1, 3, 4)),
-           "tga": ("gip_tga_write", image_io.tga_bytes, (1, 3, 4))}
+def _hwc(arr: np.ndarray) -> np.ndarray:
+    arr = np.ascontiguousarray(arr, dtype=np.uint8)
+    return arr[:, :, None] if arr.ndim == 2 else arr
+
+
+def ppm_bytes(arr: np.ndarray) -> bytes:
+    """`gip_ppm_write`: P5 for one channel, P6 for three, maxval 255."""
+    arr = _hwc(arr)
+    h, w, c = arr.shape
+    if c not in (1, 3):
+        raise ValueError(f"PPM/PGM takes 1 or 3 channels, not {c}")
+    return f"P{5 if c == 1 else 6}\n{w} {h}\n255\n".encode() + arr.tobytes()
+
+
+def bmp_bytes(arr: np.ndarray) -> bytes:
+    """`gip_bmp_write`: 24-bit BGR rows, bottom-up, each padded to 4 bytes;
+    grey is replicated and alpha dropped."""
+    arr = _hwc(arr)
+    h, w, c = arr.shape
+    if c not in (1, 3, 4) or not h or not w:
+        raise ValueError(f"BMP takes 1, 3 or 4 channels, not shape {arr.shape}")
+    row = (w * 3 + 3) & ~3
+    if 54 + row * h > 0xFFFFFFFF:
+        raise ValueError(f"a {w}x{h} image is too large for a BMP")
+    rgb = np.repeat(arr, 3, axis=2) if c == 1 else arr[:, :, :3]
+    pixels = np.zeros((h, row), np.uint8)
+    pixels[:, :w * 3] = rgb[::-1, :, ::-1].reshape(h, w * 3)
+    header = struct.pack("<2sIIIIiiHHII16x", b"BM", 54 + row * h, 0, 54, 40,
+                         w, h, 1, 24, 0, row * h)
+    return header + pixels.tobytes()
+
+
+def tga_bytes(arr: np.ndarray) -> bytes:
+    """`gip_tga_write`: uncompressed, top-down; type 3 (grey) for one
+    channel, else type 2 with BGR or BGRA pixels."""
+    arr = _hwc(arr)
+    h, w, c = arr.shape
+    if c not in (1, 3, 4) or not 0 < w <= 0xFFFF or not 0 < h <= 0xFFFF:
+        raise ValueError(f"TGA takes 1, 3 or 4 channels and sides up to "
+                         f"65535, not shape {arr.shape}")
+    header = bytearray(18)
+    header[2] = 3 if c == 1 else 2
+    header[12:16] = struct.pack("<HH", w, h)
+    header[16] = 8 * c
+    header[17] = 0x20 | (8 if c == 4 else 0)
+    pixels = arr if c == 1 else arr[:, :, [2, 1, 0, 3][:c]]
+    return bytes(header) + np.ascontiguousarray(pixels).tobytes()
+
+
+WRITERS = {"ppm": ("gip_ppm_write", ppm_bytes, (1, 3)),
+           "bmp": ("gip_bmp_write", bmp_bytes, (1, 3, 4)),
+           "tga": ("gip_tga_write", tga_bytes, (1, 3, 4))}
 
 
 @pytest.mark.parametrize("shape", [(5, 7), (1, 1), (1, 9), (8, 1), (13, 4)])
@@ -65,6 +118,10 @@ def test_writers_are_byte_equal_to_gip(rng, gip, tmp_path, fmt, shape):
             assert _gip_write(gip, name, ref, arr) != 0
             with pytest.raises(ValueError):
                 writer(arr)
+            out = tmp_path / f"port_{c}.{fmt}"
+            with pytest.raises(ValueError, match=re.escape(f"shape {arr.shape}")):
+                image_io.save_image(str(out), arr)
+            assert not out.exists()
             continue
         assert _gip_write(gip, name, ref, arr) == 0
         assert writer(arr) == ref.read_bytes(), (fmt, c)

@@ -144,6 +144,42 @@ def test_run_stops_both_servers_on_sigterm(tmp_path, ports):
     assert not serve.port_in_use(ports[0]) and not serve.port_in_use(ports[1])
 
 
+#: A process whose main thread exits while another thread, holding a
+#: listening socket, runs on for `linger` seconds: its main thread turns
+#: zombie first, as a server's does while a driver thread tears down.
+_LINGERING = """
+import ctypes, socket, sys, threading, time
+s = socket.socket()
+s.bind(("127.0.0.1", 0))
+s.listen()
+print(s.getsockname()[1], flush=True)
+threading.Thread(target=time.sleep, args=(float(sys.argv[1]),)).start()
+ctypes.CDLL(None).pthread_exit(None)
+"""
+
+
+def test_a_zombie_main_thread_with_a_live_thread_is_still_running():
+    """`pid_alive` (and so `stop`) waits for a process's last thread: until
+    then the process still holds its port."""
+    child = subprocess.Popen([sys.executable, "-c", _LINGERING, "1.0"],
+                             stdout=subprocess.PIPE, text=True,
+                             start_new_session=True)
+    try:
+        port = int(child.stdout.readline())
+        deadline = time.monotonic() + 10
+        while "\tZ" not in Path(f"/proc/{child.pid}/status").read_text():
+            assert time.monotonic() < deadline, "the main thread did not exit"
+            time.sleep(0.01)
+        assert serve.pid_alive(child.pid) and serve.port_in_use(port)
+        while serve.pid_alive(child.pid):
+            assert time.monotonic() < deadline, "the last thread did not end"
+            time.sleep(0.02)
+        assert not serve.port_in_use(port)
+    finally:
+        child.kill()
+        child.wait()
+
+
 def test_client_passes_every_check_against_a_cpu_server(tmp_path, capsys):
     server = AppServer(create_app(FilterRuntime("cpu")), "127.0.0.1", 0)
     server.start_background()

@@ -31,7 +31,7 @@ ROOT = Path(__file__).resolve().parents[1]
 JPEG = ROOT / "tests" / "data" / "torch_formats" / "jpeg_420.jpg"
 PACKAGES = ("gpu_image_processing_tpu", "gpu_image_processing_tpu_torch")
 #: Bounds, in seconds, on one step: the wheel's build, the install, one
-#: run of an entry point (imports, and the host libraries' build into the
+#: run of an entry point (imports, and the codec library's build into the
 #: cache), the server's start.
 BUILD_TIMEOUT_S = 120
 RUN_TIMEOUT_S = 120
@@ -111,10 +111,10 @@ def _free_port() -> int:
 
 def test_the_wheel_carries_the_native_sources(installed):
     names = zipfile.ZipFile(installed.wheel).namelist()
+    assert "native/src/gip_codec.cpp" in CARRIED
     for relative in CARRIED:
         assert f"gpu_image_processing_tpu_torch/_carried/{relative}" in names
-    for kernel in ("blur.cu", "sobel.cu", "launch.cuh", "edges.cuh",
-                   "png_codec.cpp"):
+    for kernel in ("blur.cu", "sobel.cu", "launch.cuh", "edges.cuh"):
         assert f"gpu_image_processing_tpu_torch/ops/cuda/{kernel}" in names
     # Neither the tests nor the web UI: the checkout's.
     assert not [n for n in names if n.startswith(("tests/", "frontend/"))]
@@ -136,12 +136,12 @@ def test_the_installed_cli_writes_the_checkouts_pixels(installed, tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     np.testing.assert_array_equal(decode_png(ours.read_bytes()),
                                   decode_png(theirs.read_bytes()))
-    # The host libraries were built into the cache, from the install's own
+    # The codec's library was built into the cache, from the install's own
     # sources, under the names a checkout gives them.
     built = sorted(p.name.split("-")[0]
                    for p in (installed.cache /
                              "gpu_image_processing_tpu_torch").iterdir())
-    assert built == ["gip_decoders", "png_codec"]
+    assert built == ["gip_decoders"]
     checkout = ROOT / "gpu_image_processing_tpu_torch" / "ops" / "cuda" / "_build"
     for lib in (installed.cache / "gpu_image_processing_tpu_torch").iterdir():
         assert (checkout / lib.name).exists(), lib.name

@@ -1,11 +1,17 @@
-"""The port's native PNG tier (utils/native_codec.py `png_encode`,
-`png_decode`, over ops/cuda/png_codec.cpp and Python's zlib) against the JAX
-package's native tier (`gip_png_encode`/`gip_png_decode` of
-native/src/gip_codec.cpp), built here from `native/src` with zlib and bound
-by the JAX package's own unedited binding: the same bytes out of the
-encoder, the same pixels and the same refusals out of the decoder.
+"""The port's PNG tiers against the JAX package's native tier.
+
+The port binds `gip_png_encode`, `gip_png_decode` and `gip_png_decode16` of
+native/src/gip_codec.cpp in its own library (utils/native_codec.py); the
+JAX package's tier is the same sources, built here from `native/src` with
+zlib and bound by the JAX package's own unedited binding: the same bytes
+out of the encoder, the same pixels and the same refusals out of the
+decoders.  The zlib tier (utils/image.py) reads through `gip_png_decode`
+and `gip_png_decode16` where they accept the file and through its plain
+path (`_png_samples`, `unfilter_plain`) where they do not: both give the
+same pixels.
 """
 
+import ctypes
 import hashlib
 import os
 import struct
@@ -25,7 +31,8 @@ from gpu_image_processing_tpu_torch.utils import image as codec
 from gpu_image_processing_tpu_torch.utils import native_codec
 
 from .test_native_formats import _png_bytes
-from .test_torch_codec import SAMPLES, _pack, make_png
+from .test_torch_codec import SAMPLES, _chunk as _codec_chunk
+from .test_torch_codec import _filter_row, _pack, make_png
 
 FIXTURES = Path(__file__).parent / "data" / "torch_formats"
 _REFERENCE_SOURCES = ("gip_codec.cpp", "gip_formats.cpp", "gip_jpeg.cpp")
@@ -110,6 +117,24 @@ def test_encode_levels_and_two_dimensional_input(rng, jax_native, level):
     assert lines[0] == (1 if level <= 1 else 0)
 
 
+@pytest.mark.parametrize("level", [1, 6])
+def test_two_channel_encode_round_trips_where_gip_refuses(rng, level):
+    """Grey + alpha, which `gip_png_encode` refuses, is written as colour
+    type 4 with filter None rows and reads back through every tier."""
+    two = _content(rng, "noise", 13, 17, 2)
+    buf, length = ctypes.c_void_p(), ctypes.c_size_t()
+    assert native_codec.load().gip_png_encode(
+        two.ctypes.data_as(ctypes.c_char_p), 13, 17, 2, level,
+        ctypes.byref(buf), ctypes.byref(length)) != 0
+    png = native_codec.png_encode(two, level)
+    assert png[24:26] == bytes([8, 4])
+    assert zlib.decompress(png[41:-12])[::1 + 2 * 17] == bytes(13)
+    np.testing.assert_array_equal(native_codec.png_decode(png), two)
+    np.testing.assert_array_equal(codec.decode_png(png), two)
+    np.testing.assert_array_equal(codec.decode_png16(png),
+                                  two.astype(np.uint16) * 257)
+
+
 def test_encode_refuses_what_the_jax_tier_refuses(jax_native):
     for img in (np.zeros((0, 4, 3), np.uint8), np.zeros((4, 4, 5), np.uint8)):
         assert native_codec.png_encode(img) is None
@@ -120,19 +145,6 @@ def test_encode_refuses_what_the_jax_tier_refuses(jax_native):
     png = native_codec.png_encode(two)
     assert png[25] == 4
     np.testing.assert_array_equal(native_codec.png_decode(png), two)
-
-
-def test_filter_rows_are_sub_or_none(rng):
-    img = rng.integers(0, 256, (5, 7, 3), dtype=np.uint8)
-    sub = native_codec.png_filter_rows(img, 1)
-    assert (sub[:, 0] == 1).all()
-    rows = img.reshape(5, 21)
-    want = rows.copy()
-    want[:, 3:] -= rows[:, :-3]
-    np.testing.assert_array_equal(sub[:, 1:], want)
-    none = native_codec.png_filter_rows(img, 2)
-    assert (none[:, 0] == 0).all()
-    np.testing.assert_array_equal(none[:, 1:], rows)
 
 
 # -- decode ----------------------------------------------------------------
@@ -207,6 +219,114 @@ def test_decode_the_committed_fixtures_equals_the_jax_tier(jax_native):
         assert (got is not None) == name.endswith(".png"), name
 
 
+def _filtered_png(values: np.ndarray, depth: int, colour: int,
+                  interlace: int, extra=()) -> bytes:
+    """PNG bytes of (H, W, S) sample values as libpng writes them: each
+    pass's rows packed, then filtered None, Sub, Up, Average and Paeth in
+    turn (row k of the file by filter k % 5), zlib level 6."""
+    h, w, samples = values.shape
+    bpp = max(1, samples * depth // 8)
+    passes = codec.ADAM7 if interlace else ((0, 0, 1, 1),)
+    lines, k = [], 0
+    for x0, y0, dx, dy in passes:
+        sub = values[y0::dy, x0::dx]
+        if not sub.size:
+            continue
+        if depth == 16:
+            packed = sub.astype(">u2").view(np.uint8).reshape(len(sub), -1)
+        else:
+            packed = _pack(sub.reshape(len(sub), -1), depth)
+        prev = bytes(packed.shape[1])
+        for row in packed:
+            lines.append(_filter_row(k % 5, row.tobytes(), prev, bpp))
+            prev, k = row.tobytes(), k + 1
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, interlace)
+    return (codec.PNG_SIGNATURE + _codec_chunk(b"IHDR", ihdr)
+            + b"".join(_codec_chunk(kind, p) for kind, p in extra)
+            + _codec_chunk(b"IDAT", zlib.compress(b"".join(lines), 6))
+            + _codec_chunk(b"IEND", b""))
+
+
+#: Every colour type at every depth it allows, Adam7 off and on, palettes
+#: with and without tRNS: (colour, depth, interlace, tRNS).
+TIER_CASES = [(colour, depth, interlace, trns)
+              for colour, depths in sorted(codec.DEPTHS.items())
+              for depth in depths for interlace in (0, 1)
+              for trns in ((False, True) if colour == 3 else (False,))]
+
+
+def _tier_case(colour: int, depth: int, interlace: int, trns: bool) -> bytes:
+    rng = np.random.default_rng(colour * 1000 + depth * 10 + interlace * 2
+                                + trns)
+    h, w = 19, 23
+    values = rng.integers(0, 1 << depth, (h, w, SAMPLES[colour]))
+    extra = []
+    if colour == 3:
+        # A palette short of the depth's range (200 entries at 8 bits), a
+        # tRNS over half of it: entries past it are opaque.
+        entries = min(1 << depth, 200)
+        values %= entries
+        extra.append((b"PLTE", rng.integers(0, 256, (entries, 3),
+                                            dtype=np.uint8).tobytes()))
+        if trns:
+            extra.append((b"tRNS", bytes(range(1, 256, 3))[:max(1, entries // 2)]))
+    return _filtered_png(values, depth, colour, interlace, extra)
+
+
+@pytest.mark.parametrize("colour,depth,interlace,trns", TIER_CASES)
+def test_zlib_tier_through_gip_equals_its_plain_path(jax_native, monkeypatch,
+                                                     colour, depth, interlace,
+                                                     trns):
+    """The zlib tier through `gip_png_decode16` and `gip_png_decode` gives
+    its plain path's pixels, at 16 and 8 bits; `png_decode` and
+    `png_decode16` give the JAX native tier's."""
+    data = _tier_case(colour, depth, interlace, trns)
+    want16 = jax_native.png_decode16(data)
+    assert want16 is not None
+    np.testing.assert_array_equal(native_codec.png_decode(data),
+                                  jax_native.png_decode(data))
+    np.testing.assert_array_equal(native_codec.png_decode16(data), want16)
+    through_gip = codec.decode_png(data), codec.decode_png16(data)
+    np.testing.assert_array_equal(through_gip[1], want16)
+    # The same tier with gip refusing every file: the plain path, one
+    # unfilter a pass and a decode.
+    passes = []
+    real_unfilter = codec.unfilter_plain
+    monkeypatch.setattr(native_codec, "png_decode", lambda data: None)
+    monkeypatch.setattr(native_codec, "png_decode16", lambda data: None)
+    monkeypatch.setattr(codec, "unfilter_plain",
+                        lambda *args: passes.append(args[1])
+                        or real_unfilter(*args))
+    np.testing.assert_array_equal(codec.decode_png(data), through_gip[0])
+    np.testing.assert_array_equal(codec.decode_png16(data), through_gip[1])
+    assert len(passes) == 2 * (7 if interlace else 1)
+
+
+def test_a_file_gip_refuses_decodes_through_the_plain_path(monkeypatch):
+    """A tRNS chunk longer than the palette: gip_png_decode and
+    gip_png_decode16 refuse it, the zlib tier reads it (as Pillow does)
+    through `_png_samples` and `unfilter_plain`, its alpha cut to the
+    palette."""
+    rng = np.random.default_rng(7)
+    palette = rng.integers(0, 256, (4, 3), dtype=np.uint8)
+    index = rng.integers(0, 4, (9, 11, 1))
+    data = _filtered_png(index, 2, 3, 0, [(b"PLTE", palette.tobytes()),
+                                           (b"tRNS", bytes([10, 20, 30, 40, 50]))])
+    assert native_codec.png_decode(data) is None
+    assert native_codec.png_decode16(data) is None
+    rows = []
+    real_unfilter = codec.unfilter_plain
+    monkeypatch.setattr(codec, "unfilter_plain",
+                        lambda *args: rows.append(args[1]) or real_unfilter(*args))
+    np.testing.assert_array_equal(codec.decode_png(data), palette[index[..., 0]])
+    rgba = np.hstack([palette, np.array([[10], [20], [30], [40]], np.uint8)])
+    np.testing.assert_array_equal(codec.decode_png16(data),
+                                  rgba[index[..., 0]].astype(np.uint16) * 257)
+    assert rows == [9, 9]
+    with pytest.raises(codec.ImageCodecError, match="CRC"):
+        codec.decode_png(data[:-20] + bytes([data[-20] ^ 1]) + data[-19:])
+
+
 def _chunk(kind: bytes, payload: bytes, crc=None) -> bytes:
     crc = zlib.crc32(kind + payload) if crc is None else crc
     return struct.pack(">I", len(payload)) + kind + payload + struct.pack(">I", crc)
@@ -219,7 +339,7 @@ def _png(ihdr=(4, 3, 8, 2, 0, 0, 0), chunks=None, lines=None) -> bytes:
             lines = b"".join(b"\x00" + bytes(range(y, y + w * 3))
                              for y in range(h))
         chunks = [(b"IDAT", zlib.compress(lines))]
-    return (native_codec.PNG_SIGNATURE
+    return (codec.PNG_SIGNATURE
             + _chunk(b"IHDR", struct.pack(">IIBBBBB", *ihdr))
             + b"".join(_chunk(k, p) for k, p in chunks) + _chunk(b"IEND", b""))
 
@@ -259,7 +379,7 @@ REFUSALS = {
     "tRNS before PLTE": lambda: _palette_png(2, trns=b"\x01", trns_first=True),
     "chunk past the end": lambda: (_png()[:33] + struct.pack(">I", 1000)
                                    + b"IDAT" + bytes(20)),
-    "IHDR of 12 bytes": lambda: (native_codec.PNG_SIGNATURE
+    "IHDR of 12 bytes": lambda: (codec.PNG_SIGNATURE
                                  + _chunk(b"IHDR", bytes(12)) + _png()[33:]),
 }
 ACCEPTED = {
