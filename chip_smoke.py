@@ -83,6 +83,28 @@ Phases, each of which fails the run on its own:
    modes, the API's `time_ms` beside its kernel's event time (level 1
    beside the plain version's), and the models' forward wall and events.
    The old kernels against the new: `tools/kernel_times.py --ref`;
+7b. served through the executables: every answer phases 4 and 5 served
+   (the API at levels 1, 2 and 4 of each filter, process at level 4, the
+   batches of 4), served again until its key's graph serves it (a key's
+   first request runs eagerly on its staging, its second captures), both
+   answers against an eager launch of the same function on the same
+   pixels, byte for byte, and each process-all of the graph server below
+   against the eager server's; the API call wall on three runtimes in
+   turn: eager (as the runtime served before its executables: pageable
+   copies, eager launches; a class of this script), staged (executables
+   given their pinned staging and no graph: eager launches on it) and
+   graph; the graph's wall with its staging in chunks of 1, 2, 4 and 8 MiB
+   and whole (`executable.STAGE_CHUNK`); one graph request's steps; the server's run phase a warm
+   process-all on the three, and a cold one (a fresh upload size and a
+   fresh sigma, so both of its keys are new) on the eager server, the
+   graph server and one that captures on a key's first request; loadgen
+   on both payloads (the built-in 1x1 PNG and a 3239x2146 PNG) on the
+   eager and graph servers, each round's launches, the share of the graph
+   server's requests that found their key held, and its executables
+   after each load, which must not grow over a repeated one; a profiled
+   request of each filter through its graph (`check_launches` must
+   pass); each held key's capture ms, pool and launches a replay, and the
+   cache's pinned and device bytes;
 8. multi-device path: 4 shards on the one card (a mesh may name one device
    several times), meshes (dp, sp) = (2, 2) and (1, 4): `make_sharded_filter`
    for gaussian r = 3, box r = 5 and Sobel L2 and L1 on 1, 4 and 3 full-size
@@ -150,6 +172,7 @@ from __future__ import annotations
 import base64
 import contextlib
 import io
+import itertools
 import json
 import os
 import re
@@ -188,11 +211,15 @@ from gpu_image_processing_tpu_torch.profiling.profiler import (
     PEAKS, PRIMER_KERNEL, PRIMERS, capture_trace, primers_kept, profile_batch,
     profile_filter, short_kernel_name, traced)
 from gpu_image_processing_tpu_torch.profiling.traffic import least_ms
+from gpu_image_processing_tpu_torch.core.params import (
+    normalize_level, validate_image_shape)
+from gpu_image_processing_tpu_torch.runtime import executable
 from gpu_image_processing_tpu_torch.runtime.device import describe
-from gpu_image_processing_tpu_torch.runtime.dispatch import FilterRuntime
+from gpu_image_processing_tpu_torch.runtime.dispatch import FilterRuntime, _Call
+from gpu_image_processing_tpu_torch.runtime.timing import exclusive
 from gpu_image_processing_tpu_torch.server.app import create_app
 from gpu_image_processing_tpu_torch.server.http import AppServer
-from gpu_image_processing_tpu_torch.tools import serve
+from gpu_image_processing_tpu_torch.tools import serve, silicon_ci
 from gpu_image_processing_tpu_torch.utils import image as codec
 from gpu_image_processing_tpu_torch.utils import native_codec
 from gpu_image_processing_tpu_torch.utils.image import (
@@ -587,6 +614,410 @@ class Client:
         return status, out
 
 
+# -- phase 7b: served through the executables' graphs ------------------------
+
+class EagerRuntime(FilterRuntime):
+    """The runtime as it served one device before its executables: the rows
+    copied to the card from pageable memory on every request, the rows
+    function launched eagerly, the answer copied back.  The yardstick of
+    phase 7b's walls only: the port serves through its executables."""
+
+    def _eager_call(self, filter_name: str, lvl: int, sigma: float,
+                    radius: int, host: np.ndarray, shape: tuple[int, ...],
+                    path: str) -> _Call:
+        fn = self._rows_fn(filter_name, lvl, sigma, radius, shape[-2], shape[-1])
+        rows = torch.from_numpy(host).to(self.device)
+        batch = shape[0] if len(shape) == 4 else 1
+        return _Call((filter_name, lvl, batch, *shape[-3:], radius),
+                     lambda: fn(rows), (self.device,),
+                     lambda out: out.cpu().numpy().reshape(shape), path, lvl)
+
+    def _single_call(self, filter_name, image, level, sigma, radius, mesh=True):
+        height = validate_image_shape(image.shape)[0]
+        lvl = self._validate(filter_name, level, sigma, radius)
+        host = np.require(image, np.uint8, ["C", "W"]).reshape(height, -1)
+        return self._eager_call(filter_name, lvl, sigma, radius, host,
+                                image.shape, "single_image")
+
+    def _batch_call(self, filter_name, images, level, sigma, radius):
+        batch, height = images.shape[:2]
+        validate_image_shape(images.shape[1:])
+        lvl = self._validate(filter_name, level, sigma, radius)
+        host = np.require(images, np.uint8, ["C", "W"]).reshape(batch, height, -1)
+        return self._eager_call(filter_name, lvl, sigma, radius, host,
+                                images.shape, "batch")
+
+
+def eager_answer(rt: FilterRuntime, f: str, lv: int, imgs: np.ndarray,
+                 sigma: float = MAIN_SIGMA, radius: int | None = None) -> np.ndarray:
+    """The served function of (H, W, C) or (B, H, W, C) images launched
+    eagerly on the card, holding it, as the runtime ran it before its
+    executables."""
+    radius = radius or {"gaussian": MAIN_GAUSS_RADIUS, "box": MAIN_BOX_RADIUS}.get(f, 3)
+    fn = rt._rows_fn(f, normalize_level(f, lv), sigma, radius, imgs.shape[-2],
+                     imgs.shape[-1])
+    rows = torch.from_numpy(np.ascontiguousarray(imgs).reshape(
+        *imgs.shape[:-2], -1)).to(rt.device)
+    with exclusive([rt.device]):
+        return fn(rows).cpu().numpy().reshape(imgs.shape)
+
+
+def run_loadgen(port: int, load: tuple[int, int], payload: str | None,
+                endpoint: str | None) -> dict[str, float]:
+    """loadgen's numbers against the server on 127.0.0.1:`port`."""
+    cmd = [str(build.build_loadgen()), "127.0.0.1", str(port), *map(str, load)]
+    if payload:
+        cmd += [payload, endpoint]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    out = silicon_ci.parse_loadgen(proc.stdout + proc.stderr)
+    require(proc.returncode == 0 and out.get("ok") and out.get("failed") == 0,
+            f"loadgen {load}: exit {proc.returncode}, {out}\n{proc.stdout[-1000:]}")
+    return out
+
+
+def executables_line(rt: FilterRuntime) -> str:
+    """Each held executable: its key's shape, its requests, and its graph's
+    capture ms, pool and launches a replay."""
+    parts = []
+    for exe in rt.executables.values():
+        k = exe.key
+        batch = k[0] == "batch"
+        f, lvl, b, h, w, c, r = k[1:8] if batch else k[:7]
+        graph = (f"capture {exe.capture_ms:.1f} ms, pool "
+                 f"{exe.pool_bytes / 1e6:.1f} MB, {dict(exe.launches)} a replay"
+                 if exe.captured else "no graph")
+        parts.append(f"{f} L{lvl} {b}x{h}x{w}x{c}" + (f" r={r}" if r else "")
+                     + f": {exe.requests} requests, {graph}")
+    return "; ".join(parts)
+
+
+@contextlib.contextmanager
+def capture_at(n: int):
+    """Executables made meanwhile capture their graph on request `n`."""
+    old, executable.CAPTURE_AT = executable.CAPTURE_AT, n
+    try:
+        yield
+    finally:
+        executable.CAPTURE_AT = old
+
+
+def through_graph(rt: FilterRuntime, serve, what: str) -> list[np.ndarray]:
+    """`serve()`'s answers until its key's graph has served one (a key's
+    first request runs eagerly, its second captures): the last answer came
+    through the graph."""
+    answers = []
+    for _ in range(executable.CAPTURE_AT):
+        answers.append(serve())
+        exe = rt.executables.values()[-1]   # the one that served
+        if exe.captured:
+            return answers
+    require(False, f"{what}: no graph served request {exe.requests} of its key")
+
+
+def graph_phase(rt: FilterRuntime, card: str, image: np.ndarray,
+                scene: np.ndarray, scene_b64: str, grads: list[np.ndarray],
+                served: dict, served4: dict, batches: dict) -> None:
+    """Phase 7b: the answers the executables served (phases 4 and 5), and
+    the same requests served again through their graphs, against eager
+    launches of the same functions at full size, byte for byte; the API
+    call wall, eager, staged and through the graphs, in turn; the server's
+    run phase warm and cold, and loadgen on both payloads; a profiled
+    request through the graph; each key's capture and what the cache
+    holds."""
+    t7b = time.perf_counter()
+    h, w, c = FULL
+    eager_rt = EagerRuntime(rt.device)
+    calls = {
+        "gaussian": lambda r, lv: api.gaussian_blur(
+            image, MAIN_SIGMA, MAIN_GAUSS_RADIUS, lv, runtime=r),
+        "box": lambda r, lv: api.box_blur(image, MAIN_BOX_RADIUS, lv, runtime=r),
+        "sobel": lambda r, lv: api.sobel_edge_detection(image, lv, runtime=r),
+    }
+    # The API path: every filter and level, staged and graph against eager.
+    for f in calls:
+        for lv in config.REQUEST_LEVELS:
+            want = eager_answer(rt, f, lv, image)
+            for got in through_graph(rt, lambda: calls[f](rt, lv)["image"],
+                                     f"API {f} L{lv}"):
+                require(np.array_equal(got, want),
+                        f"API {f} L{lv}: the executable's answer differs from "
+                        f"an eager launch")
+            require(np.array_equal(calls[f](eager_rt, lv)["image"], want),
+                    f"API {f} L{lv}: the eager runtime's answer differs")
+    # The server path (phase 5): process-all L1/L2 and process L4 on the
+    # scene, and the batches of 4 gradients at L2 and L4, each as phase 5
+    # served it and again through its graph.
+    for (f, lv), got in served.items():
+        require(np.array_equal(got, eager_answer(rt, f, lv, scene)),
+                f"served process-all {f} L{lv} differs from an eager launch")
+    sigma_of = {2: 1.5, 3: MAIN_SIGMA, 15: 5.0}
+    for (f, radius), got in served4.items():
+        sigma = sigma_of.get(radius, MAIN_SIGMA)
+        want = eager_answer(rt, f, 4, scene, sigma, radius)
+        again = through_graph(rt, lambda: rt.run(
+            f, scene, level=4, sigma=sigma,
+            radius=radius or config.DEFAULT_RADIUS)[0], f"process {f} L4")
+        require(all(np.array_equal(a, want) for a in [got, *again]),
+                f"served process {f} L4 r={radius} differs from an eager launch")
+    stack = np.stack(grads)
+    for (f, lv), got in batches.items():
+        want = eager_answer(rt, f, lv, stack)
+        radius = {"gaussian": MAIN_GAUSS_RADIUS, "box": MAIN_BOX_RADIUS}.get(
+            f, config.DEFAULT_RADIUS)
+        again = through_graph(rt, lambda: rt.run_batch(
+            f, stack, level=lv, sigma=MAIN_SIGMA, radius=radius)[0],
+            f"process-batch {f} L{lv}")
+        require(all(np.array_equal(a, want) for a in [np.stack(got), *again]),
+                f"served process-batch {f} L{lv} differs from an eager launch")
+    print(f"executables vs eager at {w}x{h}x{c}: API {len(calls) * 3} answers "
+          f"(3 filters x L1/L2/L4), server {len(served)} process-all, "
+          f"{len(served4)} process L4, {len(batches)} batches of 4, as served "
+          f"and again through their graphs: all equal byte for byte")
+
+    # The API call wall (host clock, copies included), least and median of
+    # 5 in turn: eager, staged (eager launches on executables given their
+    # pinned staging and no graph) and the graph.
+    staged_rt = FilterRuntime(rt.device)   # pinned staging, never a graph
+    for f, lv in itertools.product(calls, (1, 2)):   # builds the executables
+        with capture_at(sys.maxsize):
+            calls[f](staged_rt, lv)
+        staged_rt.executables.values()[-1]._buffers(staging=True)
+        through_graph(rt, lambda: calls[f](rt, lv)["image"], f"API {f} L{lv}")
+    arms = {"eager": eager_rt, "staged": staged_rt, "graph": rt}
+    for lv, f in itertools.product((2, 1), calls):
+        walls = {label: [] for label in arms}
+        time_ms = {label: [] for label in arms}
+        for _ in range(5):
+            for label, r in arms.items():
+                t0 = time.perf_counter()
+                res = calls[f](r, lv)
+                walls[label].append((time.perf_counter() - t0) * 1000.0)
+                time_ms[label].append(res["time_ms"])
+                if label != "eager":
+                    require(r.executables.values()[-1].captured == (label == "graph"),
+                            f"{label} {f} L{lv}: served {'without' if label == 'graph' else 'with'} a graph")
+        print(f"[{card}] {f} L{lv} {w}x{h}x{c}: API call wall (host clock, least "
+              f"/ median of 5, in turn) " + ", ".join(
+                  f"{label} {min(v):.3f} / {float(np.median(v)):.3f} ms"
+                  for label, v in walls.items())
+              + "; time_ms " + ", ".join(f"{label} {min(v):.4f}"
+                                         for label, v in time_ms.items()))
+    # The staging's chunk (`executable.STAGE_CHUNK`): the graph's API call
+    # wall, least and median of 5 in turn, on runtimes whose executables
+    # stage in chunks of 1, 2, 4 and 8 MiB, and whole.
+    sweep = {}
+    for label, size in ({f"{n} MiB": n << 20 for n in (1, 2, 4, 8)}
+                        | {"whole": 1 << 40}).items():
+        sweep[label] = FilterRuntime(rt.device)
+        old, executable.STAGE_CHUNK = executable.STAGE_CHUNK, size
+        try:
+            for f, lv in (("gaussian", 2), ("sobel", 1)):
+                through_graph(sweep[label], lambda: calls[f](sweep[label], lv)["image"],
+                              f"API {f} L{lv}, staging {label}")
+        finally:
+            executable.STAGE_CHUNK = old
+    for f, lv in (("gaussian", 2), ("sobel", 1)):
+        walls = {label: [] for label in sweep}
+        for _ in range(5):
+            for label, r in sweep.items():
+                t0 = time.perf_counter()
+                calls[f](r, lv)
+                walls[label].append((time.perf_counter() - t0) * 1000.0)
+        print(f"[{card}] {f} L{lv} {w}x{h}x{c}: the graph's API call wall by "
+              f"staging chunk (host clock, least / median of 5, in turn) "
+              + ", ".join(f"{label} {min(v):.3f} / {float(np.median(v)):.3f} ms"
+                          for label, v in walls.items()))
+    del sweep
+    # One graph request in its steps, host clock, least of 5: the staging
+    # in (host copy and copy to the card), the replay, the copy out (copy
+    # from the card and host copy into a new array); and a plain host copy
+    # of the image into an array already written.
+    rows_h = image.reshape(h, -1)
+    exe = next(e for e in rt.executables.values()
+               if e.key[:3] == ("gaussian", 2, 1) and e.shape == rows_h.shape)
+    steps = {"stage": [], "replay": [], "fetch": [], "host copy": []}
+    warm = np.empty_like(rows_h)
+    for _ in range(5):
+        t0 = time.perf_counter()
+        with exe.staged(rows_h):
+            torch.cuda.current_stream(rt.device).synchronize()
+            t1 = time.perf_counter()
+            with exclusive([rt.device]):
+                out = exe.run()
+                torch.cuda.current_stream(rt.device).synchronize()
+            t2 = time.perf_counter()
+            exe.fetch(out)
+            t3 = time.perf_counter()
+        np.copyto(warm, rows_h)
+        t4 = time.perf_counter()
+        for k, a, b in (("stage", t0, t1), ("replay", t1, t2), ("fetch", t2, t3),
+                        ("host copy", t3, t4)):
+            steps[k].append((b - a) * 1000.0)
+    print(f"[{card}] one gaussian L2 graph request at {w}x{h}x{c}, ms (host "
+          f"clock, least of 5): " + ", ".join(f"{k} {min(v):.3f}"
+                                              for k, v in steps.items()))
+
+    # The server: its run phase a warm and a cold process-all, and
+    # loadgen's two payloads, on servers in this process.
+    work = tempfile.mkdtemp(prefix="chip_smoke_7b_")
+    payload_file = os.path.join(work, "full_payload.json")
+    with open(payload_file, "w") as fh:
+        json.dump(silicon_ci.full_size_payload(), fh)
+    first_rt = FilterRuntime(rt.device)
+    servers = {"eager": AppServer(create_app(eager_rt), "127.0.0.1", 0),
+               "staged": AppServer(create_app(staged_rt), "127.0.0.1", 0),
+               "graph": AppServer(create_app(rt), "127.0.0.1", 0),
+               "capture at first": AppServer(create_app(first_rt), "127.0.0.1", 0)}
+    params = {"gaussian": {"sigma": MAIN_SIGMA, "radius": MAIN_GAUSS_RADIUS},
+              "box": {"radius": MAIN_BOX_RADIUS}, "sobel": {}}
+    route = "POST /api/process-all"
+    run_ms, answers, loads, held, launches = {}, {}, {}, {}, {}
+    try:
+        clients = {}
+        for label, server in servers.items():
+            server.start_background()
+            clients[label] = Client(f"http://127.0.0.1:{server.port}", card)
+
+        # The request of a key that captures its graph, by server.
+        capture_of = {"staged": sys.maxsize, "capture at first": 1}
+
+        def run_phase(label: str, payloads: list[dict], what: str) -> float:
+            """The server's run phase a request over `payloads`, in ms."""
+            client = clients[label]
+            before = client.get("/api/stats")[1]["phase_ms"].get(route, {})
+            for payload in payloads:
+                with capture_at(capture_of.get(label, executable.CAPTURE_AT)):
+                    status, out = client.post(
+                        "/api/process-all", payload,
+                        f"{payload['filter']} {what} {label}")
+                require(status == 200, f"{label} process-all {what}: {status}")
+                answers.setdefault((label, what, payload["filter"]),
+                                   out["results"])
+            after = client.get("/api/stats")[1]["phase_ms"][route]
+            return ((after["run"] - before.get("run", 0.0))
+                    / (after["requests"] - before.get("requests", 0)))
+
+        warm_payloads = [{"image": scene_b64, "filter": f, **params[f]}
+                         for f in params]
+        for label in ("eager", "staged", "graph", "graph", "staged", "eager"):
+            # Untimed: the keys seen and, on the graph server, captured.
+            for _ in range(executable.CAPTURE_AT if label == "graph" else 1):
+                run_phase(label, warm_payloads, "warm-up")
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            run_ms.setdefault(("warm", label), []).append(
+                run_phase(label, warm_payloads, "warm"))
+            torch.cuda.synchronize()
+            launches[label] = {k: n for k, n in LAUNCHES.items() if n}
+        require(not any(e.captured for e in staged_rt.executables.values()),
+                "the staged server captured a graph")
+        graphs = {e.key[:2] for e in rt.executables.values()
+                  if e.captured and e.key[3:6] == (h, w, c)}
+        require({(f, lv) for f in params for lv in (1, 2)} <= graphs,
+                f"the graph server served its warm process-all without graphs: "
+                f"it holds graphs of {sorted(graphs)}")
+        for f in params:
+            eager_out = answers[("eager", "warm", f)]
+            for label in ("staged", "graph"):
+                require(all(answers[(label, "warm", f)][k]["processed_image"]
+                            == eager_out[k]["processed_image"]
+                            for k in ("level_1", "level_2")),
+                        f"process-all {f}: the {label} server's answer differs "
+                        f"from the eager server's")
+        # Cold: each request a fresh upload size and a fresh sigma, so both
+        # of its keys (L1 and L2) are new to the server that serves it.
+        cold = ("eager", "graph", "capture at first")
+        for i, label in enumerate(cold * 3):
+            crop = np.ascontiguousarray(scene[:h - 8 * (i + 1), :w - 8 * (i + 1)])
+            payload = {"image": "data:image/png;base64," + base64.b64encode(
+                           native_codec.png_encode(crop)).decode(),
+                       "filter": "gaussian", "sigma": 1.05 + 0.1 * i,
+                       "radius": MAIN_GAUSS_RADIUS}
+            ms = run_phase(label, [payload], f"cold {i}")
+            run_ms.setdefault(("cold", label), []).append(ms)
+            want = eager_answer(rt, "gaussian", 2, crop, payload["sigma"])
+            require(decode_base64_image(answers[(label, f"cold {i}", "gaussian")]
+                                        ["level_2"]["processed_image"]).tobytes()
+                    == want.tobytes(), f"cold process-all on the {label} server "
+                                       f"differs from an eager launch")
+        for kind in ("warm", "cold"):
+            print(f"[{card}] server run phase, {kind} process-all (L1 + L2) "
+                  f"at {w}x{h} ({'gaussian, box and Sobel' if kind == 'warm' else 'gaussian, a fresh size and sigma each'}), "
+                  f"ms a request (host clock; rounds in turn): " + "; ".join(
+                      f"{label} " + " / ".join(f"{m:.2f}" for m in v)
+                      for (k, label), v in run_ms.items() if k == kind))
+        print(f"captures on the cold requests of the capture-at-first server: "
+              + ", ".join(f"{e.capture_ms:.1f} ms" for e in first_rt.executables.values()))
+        print(f"launches for the 3 warm process-all requests of the last round: "
+              + ", ".join(f"{label} server {n}" for label, n in launches.items()))
+        for label, name in itertools.product(launches, API_KERNELS):
+            require(launches[label].get(name, 0) >= config.TIMING_REPS,
+                    f"the {label} server launched {name} "
+                    f"{launches[label].get(name, 0)} times for one process-all")
+        for load, payload, endpoint, order in (
+                (silicon_ci.SMALL_LOAD, None, None, ("eager", "graph")),
+                (silicon_ci.FULL_LOAD, payload_file, "/api/process-all",
+                 ("eager", "graph", "graph"))):
+            for label in order:
+                port = servers[label].port
+                before = clients[label].get("/api/stats")[1]["executables"]
+                loads.setdefault((load, label), []).append(
+                    run_loadgen(port, load, payload, endpoint))
+                if label == "graph":
+                    after = clients["graph"].get("/api/stats")[1]["executables"]
+                    held.setdefault(load, []).append(after)
+                    print(f"graph server, loadgen {load[0]}x{load[1]}: "
+                          f"{after['hits'] - before['hits']} of "
+                          f"{after['requests'] - before['requests']} runtime "
+                          f"requests found their key held")
+        for (load, label), runs in loads.items():
+            what = ("/api/process built-in 1x1 PNG" if load == silicon_ci.SMALL_LOAD
+                    else f"/api/process-all {w}x{h} PNG")
+            for run in runs:
+                print(f"[{card}] loadgen {what} {load[0]}x{load[1]} {label}: "
+                      f"{run['req_per_s']:.1f} req/s, p50 {run['p50_ms']:.1f} ms, "
+                      f"p99 {run['p99_ms']:.1f} ms")
+    finally:
+        for server in servers.values():
+            server.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    del staged_rt, first_rt
+    full = held[silicon_ci.FULL_LOAD]
+    print(f"graph server's executables after loadgen: small "
+          f"{json.dumps(held[silicon_ci.SMALL_LOAD][0])}; full, twice "
+          f"{json.dumps(full[0])} then {json.dumps(full[1])}")
+    for k in ("executables", "pinned_bytes", "device_bytes"):
+        require(full[1][k] == full[0][k],
+                f"the executables' {k} grew over a repeated load: {full[0][k]} "
+                f"-> {full[1][k]}")
+    for k in ("process_pinned_bytes", "card_reserved_bytes"):
+        require(full[1].get(k, 0) <= full[0].get(k, 0),
+                f"{k} grew over a repeated load: {full[0].get(k)} -> "
+                f"{full[1].get(k)}")
+
+    # A profiled request traces the graph's replays: `check_launches` holds
+    # the trace's hand-kernel launches to LAUNCHES, or the profile raises.
+    for f, lv in (("gaussian", 2), ("box", 2), ("sobel", 2), ("gaussian", 1)):
+        radius = {"gaussian": MAIN_GAUSS_RADIUS, "box": MAIN_BOX_RADIUS}.get(f)
+        through_graph(rt, lambda: calls[f](rt, lv)["image"], f"API {f} L{lv}")
+        deep = profile_filter(rt, image, f, lv, MAIN_SIGMA, radius)
+        require(rt.executables.values()[-1].captured,
+                f"profiled {f} L{lv}: its executable has no graph")
+        counts = {short_kernel_name(k): v["count"]
+                  for k, v in deep.get("trace_kernel_stats", {}).items()}
+        require(rt.device.type != "cuda"
+                or deep["duration_source"] == "torch_profiler_trace",
+                f"profiled {f} L{lv}: {deep['duration_source']}")
+        print(f"[{card}] profiled {f} L{lv} through its graph: check_launches "
+              f"passed in {deep['config'].get('Trace Sessions')} session(s), "
+              f"{deep['total_kernel_duration_ms']:.4f} ms a call, rows {counts}")
+    stats = rt.executables.stats()
+    print(f"executables held: {executables_line(rt)}")
+    print(f"executable cache: {json.dumps(stats)}; {stats['hits']} of "
+          f"{stats['requests']} requests of this runtime found their key held")
+    print(f"graph phase: {time.perf_counter() - t7b:.1f} s")
+
+
 # -- phase 9: the host entry points ------------------------------------------
 
 #: Runs modules in turn as `python -m` would, in one process, and prints
@@ -942,6 +1373,9 @@ def verification_tier(card: str) -> None:
           + ", ".join(f"section {s['section']} {s['trials']} trials"
                       for s in soak.get("sections", []))
           + f", SOAK DONE: {soak.get('failures')} failures")
+    for sec in soak.get("sections", []):
+        print(f"soak section {sec['section']}: executables after it "
+              f"{json.dumps(sec.get('executables'))}")
     sol = stages["sol"]["details"]
     for row in sol.get("rows", []):
         for op in row["ops"]:
@@ -959,6 +1393,8 @@ def verification_tier(card: str) -> None:
     print("serving: " + serving["tail"].replace("\n", "\n  "))
     for name, st in stages.items():
         print(f"phase 10 {name} launches: {json.dumps(st['details'].get('launches'))}")
+    print(f"phase 10 serving: executables held before and after each loadgen "
+          f"run: {json.dumps(serving['details'].get('executables'))}")
     failed = [name for name, st in stages.items() if not st["ok"]]
     require(proc.returncode == 0 and not failed,
             f"silicon_ci: exit {proc.returncode}, failed stages {failed}:\n"
@@ -2128,6 +2564,17 @@ def main() -> int:
         print(f"[{card}] {name} {what}: kernel {event_ms(fn):.4f} ms, bound "
               f"{least:.4f} ms ({by})")
     del batch4, band3, band1
+    # The rows kernels' batch form (B: the batch on grid z) on 4 full-size
+    # images, beside its plain version.
+    rows4 = rows.unsqueeze(0).repeat(4, 1, 1)
+    for name, (kernel, plain_fn) in arms.items():
+        if name in ("gaussian_rows", "sobel_rows"):
+            least, by = bound(name, (4, *FULL), main_radius[name])
+            print(f"[{card}] {name} on 4 images (4, {h}, {w * c}): kernel "
+                  f"{event_ms(lambda: kernel(rows4)):.4f} ms, plain torch "
+                  f"{event_ms(lambda: plain_fn(rows4), 5):.4f} ms, bound "
+                  f"{least:.4f} ms ({by})")
+    del rows4
     # The band (level-4 gaussian from r = 3) launched on the planes.
     for radius, sigma in ((MAIN_GAUSS_RADIUS, MAIN_SIGMA), (15, 5.0), (31, 8.0)):
         hi, lo = (weights_to_torch(t, dev)
@@ -2172,6 +2619,9 @@ def main() -> int:
               f"(host clock, least of 5), CUDA events "
               f"{event_ms(lambda: fwd(image_t)):.4f} ms, of which the kernel "
               f"{times[kernel_name][0]:.4f} ms")
+    # -- 7b. served through the executables' graphs --------------------------
+    graph_phase(rt, card, image, scene, scene_b64, grads, served, served4, batches)
+
     # -- 8. multi-device path on one card -----------------------------------
     # A mesh may name one device several times: 4 shards on this card, as
     # (dp, sp) = (2, 2) and (1, 4), rows exchanged as halo copies within the
@@ -2331,7 +2781,9 @@ def main() -> int:
                 f"profiled {what} request lists no gaussian kernel: {names}")
         require(deep[what]["total_kernel_duration_ms"] > 0, f"profiled {what}: no time")
         print(f"[{card}] profile gaussian L2 {path}: {deep[what]['total_kernel_duration_ms']:.4f} "
-              f"ms a call (time_ms {time_ms:.4f}), rows: " + ", ".join(
+              f"ms a call (time_ms {time_ms:.4f}), sessions "
+              f"{deep[what]['config']['Trace Sessions']}, primers kept "
+              f"{deep[what]['config']['Trace Primers Kept']}, rows: " + ", ".join(
                   f"{short_kernel_name(k)} {v:.4f}"
                   for k, v in deep[what].get("kernel_durations_ms", {}).items()))
     print(f"serving on cuda:0 x 4 at {w}x{h}x{c}: spatial gaussian L1/L2/L4 == "
@@ -2384,6 +2836,7 @@ def main() -> int:
 
     # -- 11. the installed package ------------------------------------------
     installed_package(card, scene_jpeg, jpeg_answer)
+    print(f"executable cache at the end: {json.dumps(rt.executables.stats())}")
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
 
     # No single PyTorch call computes these functions (the u8 rounding

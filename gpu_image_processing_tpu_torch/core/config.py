@@ -62,3 +62,8 @@ EXIT_RECYCLE: int = 43
 
 #: Timed repetitions behind each served `time_ms` (the least is reported).
 TIMING_REPS: int = 2
+
+#: Executables (runtime/executable.py) a runtime keeps, least recently used
+#: first out: each holds its key's device input, its graph's pool and
+#: pinned staging in and out.
+EXECUTABLE_CACHE_SIZE: int = 8

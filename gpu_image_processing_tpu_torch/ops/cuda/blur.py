@@ -37,7 +37,7 @@ import torch
 
 from .. import interleaved
 from ..weights import box_inv_taps_f32
-from . import LAUNCHES, build
+from . import build, count_launch
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -170,7 +170,7 @@ def gaussian_rows(rows: torch.Tensor, weights: torch.Tensor, radius: int,
     if rows.device.type == "cpu":
         return gaussian_rows_plain(rows, weights, radius, channels)
     out = _launch_gaussian("gip_gaussian_rows", rows, weights, radius, channels)
-    LAUNCHES["gaussian_rows"] += 1
+    count_launch("gaussian_rows")
     return out
 
 
@@ -182,7 +182,7 @@ def gaussian_folded_rows(rows: torch.Tensor, weights: torch.Tensor,
         return gaussian_folded_rows_plain(rows, weights, radius, channels)
     out = _launch_gaussian("gip_gaussian_folded_rows", rows, weights, radius,
                            channels)
-    LAUNCHES["gaussian_folded_rows"] += 1
+    count_launch("gaussian_folded_rows")
     return out
 
 
@@ -204,7 +204,7 @@ def gaussian_band_rows(rows: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
                          f"{radius}, {channels} channels")
     out = _launch("gip_gaussian_band_rows", rows, channels, radius,
                   hi.data_ptr(), lo.data_ptr())
-    LAUNCHES["gaussian_band_rows"] += 1
+    count_launch("gaussian_band_rows")
     return out
 
 
@@ -222,5 +222,5 @@ def box_rows(rows: torch.Tensor, radius: int, channels: int) -> torch.Tensor:
     else:
         out = _launch("gip_box_wide_rows", rows, channels, radius, inv,
                       scratch=True)
-    LAUNCHES["box_rows"] += 1
+    count_launch("box_rows")
     return out

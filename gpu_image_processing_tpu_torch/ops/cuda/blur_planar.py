@@ -25,7 +25,7 @@ import torch
 from ...core.config import MAX_KERNEL_TAPS
 from .. import interleaved
 from ..weights import box_inv_taps_f32
-from . import LAUNCHES, blur, build
+from . import blur, build, count_launch
 from .blur import MAX_BATCH, check_table
 
 #: Output rows of one launch: the window kernels' row bands are at least 32
@@ -116,7 +116,7 @@ def gaussian_planar(planes: torch.Tensor, weights: torch.Tensor, radius: int,
         return gaussian_planar_plain(planes, weights, radius, rows_prepadded)
     out = _launch("gip_gaussian_planar", planes, dims, radius, rows_prepadded,
                   weights)
-    LAUNCHES["gaussian_planar"] += 1
+    count_launch("gaussian_planar")
     return out
 
 
@@ -132,7 +132,7 @@ def gaussian_folded_planar(planes: torch.Tensor, weights: torch.Tensor,
                                             rows_prepadded)
     out = _launch("gip_gaussian_folded_planar", planes, dims, radius,
                   rows_prepadded, weights)
-    LAUNCHES["gaussian_folded_planar"] += 1
+    count_launch("gaussian_folded_planar")
     return out
 
 
@@ -145,5 +145,5 @@ def box_planar(planes: torch.Tensor, radius: int,
         return box_planar_plain(planes, radius, rows_prepadded)
     out = _launch("gip_box_planar", planes, dims, radius, rows_prepadded,
                   float(box_inv_taps_f32(radius)))
-    LAUNCHES["box_planar"] += 1
+    count_launch("box_planar")
     return out

@@ -21,7 +21,7 @@ import torch
 
 from ...core.config import VALID_CHANNELS
 from .. import interleaved
-from . import LAUNCHES, build
+from . import build, count_launch
 from .blur import check_rows
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -78,7 +78,7 @@ def sobel_rows(rows: torch.Tensor, width: int, channels: int) -> torch.Tensor:
     if rows.device.type == "cpu":
         return sobel_rows_plain(rows, width, channels)
     out = _launch("gip_sobel_rows", rows, width, channels)
-    LAUNCHES["sobel_rows"] += 1
+    count_launch("sobel_rows")
     return out
 
 
@@ -88,5 +88,5 @@ def sobel_f32_rows(rows: torch.Tensor, width: int,
     if rows.device.type == "cpu":
         return sobel_f32_rows_plain(rows, width, channels)
     out = _launch("gip_sobel_f32_rows", rows, width, channels)
-    LAUNCHES["sobel_f32_rows"] += 1
+    count_launch("sobel_f32_rows")
     return out

@@ -19,7 +19,7 @@ import torch
 from ...core.config import VALID_CHANNELS
 from .. import interleaved
 from ..rounding import quantize_u8_f32
-from . import LAUNCHES, build, sobel
+from . import build, count_launch, sobel
 from .blur import MAX_BATCH
 from .sobel import MAX_HEIGHT
 
@@ -84,7 +84,7 @@ def sobel_planar(planes: torch.Tensor, rows_prepadded: bool = False,
         check_planes(planes, rows_prepadded)
         return sobel_planar_plain(planes, 2, rows_prepadded, zero_rows)
     out = _launch("gip_sobel_planar", planes, rows_prepadded, zero_rows)
-    LAUNCHES["sobel_planar"] += 1
+    count_launch("sobel_planar")
     return out
 
 
@@ -95,5 +95,5 @@ def sobel_f32_planar(planes: torch.Tensor, rows_prepadded: bool = False,
         check_planes(planes, rows_prepadded)
         return sobel_planar_plain(planes, 1, rows_prepadded, zero_rows)
     out = _launch("gip_sobel_f32_planar", planes, rows_prepadded, zero_rows)
-    LAUNCHES["sobel_f32_planar"] += 1
+    count_launch("sobel_f32_planar")
     return out

@@ -20,7 +20,8 @@ The duration tiers:
 
 * on a CUDA device, ``torch_profiler_trace``: `torch.profiler` with CUDA
   activity around `PROFILE_REPS` runs of the call the runtime serves (the
-  rows function, or on a mesh deployment the row-sharded or mesh-batch
+  rows function, its graph's replay once captured, or on a mesh
+  deployment the row-sharded or mesh-batch
   call, ``Serving Path`` ``spatial(sp=n)`` or ``batch(dp=n)``) on the
   image already on the card; each device row (a kernel, or a copy or fill
   if the function issued one) becomes an entry of `kernel_durations_ms`
@@ -30,8 +31,9 @@ The duration tiers:
   a session's first device records, by count in the threaded server and by
   time elsewhere (PERF.md, section 7).  The trace must hold every
   hand-kernel launch that `ops.cuda.LAUNCHES` counted during it
-  (`check_launches`); else the profile opens another session, and after
-  `SESSION_ATTEMPTS` it raises, naming both counts;
+  (`check_launches`); else the profile opens another session with twice
+  the lead and four times the primers, and after `SESSION_ATTEMPTS` it
+  raises, naming both counts;
 * on the CPU, ``wall_timing``: the host clock around the same runs, which
   serve the kernels' plain versions.
 
@@ -92,7 +94,10 @@ PROFILE_REPS = 10
 #: and on an H100 a session's first records were so dated: those of its
 #: first milliseconds (1 session in 40 to 160 without the lead), or its
 #: first 4 whatever the host time (the threaded server's sessions); PERF.md,
-#: section 7.
+#: section 7.  A session opened again has twice the lead and four times
+#: the primers: once the threaded server had run, a session of the main
+#: thread lost its first record, and late in a long run every primer and
+#: then 1 to 3 launches, at a lead of 80 ms as at 20.
 PRIMERS = 16
 PRIMER_KERNEL = "spin_kernel"
 SESSION_LEAD_S = 0.02
@@ -218,20 +223,21 @@ def primers_kept(averages) -> int:
 
 
 @contextlib.contextmanager
-def traced(devices: Sequence[torch.device]):
+def traced(devices: Sequence[torch.device], lead_s: float = SESSION_LEAD_S,
+           primers: int = PRIMERS):
     """A torch.profiler session with CPU and CUDA activity that keeps the
-    block's device work: it opens with `PRIMERS` spins on each device's
-    current stream and `SESSION_LEAD_S` of host time, and closes once the
-    devices have finished the block.  Yields the profiler."""
+    block's device work: it opens with `primers` spins on each device's
+    current stream and `lead_s` of host time, and closes once the devices
+    have finished the block.  Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for device in devices:
             with torch.cuda.device(device):
-                for _ in range(PRIMERS):
+                for _ in range(primers):
                     torch.cuda._sleep(1)
-        time.sleep(SESSION_LEAD_S)
+        time.sleep(lead_s)
         yield prof
         for device in devices:
             torch.cuda.synchronize(device)
@@ -243,8 +249,9 @@ def _measure(devices: tuple[torch.device, ...], run: Callable[[], Any],
     """(times_ms, trace rows, peak device bytes, the trace's account for
     ``config``) of `reps` runs of `run`, whose first call has been made, on
     `devices` (one, or a mesh's).  On the card, a session whose trace
-    missed a launch is opened again, `SESSION_ATTEMPTS` times at most;
-    then the last one's `LostLaunches` is raised."""
+    missed a launch is opened again with twice the lead and four times
+    the primers, `SESSION_ATTEMPTS` times at most; then the last one's
+    `LostLaunches` is raised."""
     if devices[0].type != "cuda":
         times = []
         for _ in range(reps):
@@ -253,26 +260,34 @@ def _measure(devices: tuple[torch.device, ...], run: Callable[[], Any],
             times.append((time.perf_counter() - t0) * 1000.0)
         return times, None, None, {}
     for attempt in range(1, SESSION_ATTEMPTS + 1):
-        kernels, made, peak, primers = _session(devices, run, reps)
+        lead_s = SESSION_LEAD_S * 2 ** (attempt - 1)
+        primers = PRIMERS * 4 ** (attempt - 1)
+        kernels, made, peak, kept = _session(devices, run, reps, lead_s,
+                                             primers)
         try:
             check_launches(kernels, made)
             break
         except LostLaunches as exc:
             if attempt == SESSION_ATTEMPTS:
-                raise LostLaunches(f"{exc}, in each of {attempt} sessions")
+                raise LostLaunches(
+                    f"{exc}, in each of {attempt} sessions (the last with a "
+                    f"{lead_s * 1e3:g} ms lead, {kept} of "
+                    f"{primers * len(devices)} primers kept)")
     if not kernels:
         raise RuntimeError("torch.profiler recorded no device activity on "
                            f"{', '.join(map(str, devices))}")
     per_call = sum(k["per_call_ms"] for k in kernels.values())
     account = {"Trace Sessions": attempt,
-               "Trace Primers Kept": f"{primers} of {PRIMERS * len(devices)}"}
+               "Trace Primers Kept": f"{kept} of {primers * len(devices)}"}
     return [per_call] * reps, kernels, peak, account
 
 
 def _session(devices: tuple[torch.device, ...], run: Callable[[], Any],
-             reps: int) -> tuple[dict, int, int, int]:
+             reps: int, lead_s: float,
+             primers: int) -> tuple[dict, int, int, int]:
     """(trace rows, hand-kernel launches made, peak device bytes, primers
-    kept) of one traced session of `reps` runs of `run` on the cards."""
+    kept) of one traced session of `reps` runs of `run` on the cards,
+    opened with `primers` spins a card and a lead of `lead_s`."""
     # One session at a time: torch.profiler allows one in a process, and its
     # trace holds the whole device's activity, so no other request's device
     # work may run meanwhile (runtime/timing.py::exclusive).
@@ -281,7 +296,7 @@ def _session(devices: tuple[torch.device, ...], run: Callable[[], Any],
             torch.cuda.synchronize(device)
             torch.cuda.reset_peak_memory_stats(device)
         made = sum(LAUNCHES.values())
-        with traced(devices) as prof:
+        with traced(devices, lead_s, primers) as prof:
             for _ in range(reps):
                 run()
         made = sum(LAUNCHES.values()) - made
@@ -379,13 +394,18 @@ def _profile(runtime: FilterRuntime, images: np.ndarray, filter_type: str,
         call = runtime._batch_call(filter_type, images, level, sigma, radius)
     else:
         call = runtime._single_call(filter_type, images, level, sigma, radius)
-    # Builds and warms, untimed, holding the card as the runtime's own first
-    # run does (runtime/dispatch.py::_timed): never inside another request's
-    # bracket.  Released before _measure, which takes the session lock first.
-    with exclusive(call.devices):
-        call.run()
-    times, kernels, peak, account = _measure(call.devices, call.run,
-                                             PROFILE_REPS)
+    # The served call: on one device its executable, held, built if need
+    # be, with the request's rows staged, so the session traces the runs
+    # that serve the request (the graph's replays once it is captured).
+    # One untimed run first, holding the card as the runtime's
+    # own first run does (runtime/dispatch.py::_timed): never inside
+    # another request's bracket.  Released before _measure, which takes the
+    # session lock first.
+    with call.staged():
+        with exclusive(call.devices):
+            call.run()
+        times, kernels, peak, account = _measure(call.devices, call.run,
+                                                 PROFILE_REPS)
     flops = served_tensor_core_flops(filter_type, call.level, height, width,
                                      channels, radius, batch or 1)
     extra = ({"Serving Path": call.path, "Batch Size": batch} if batch

@@ -25,13 +25,20 @@ Only the filter's device work is timed (runtime/timing.py): the card's
 queue is filled before the start event, so the host's enqueue falls outside
 it, at level 1 as at the kernel levels; the copies to and from the device
 are not timed.
+
+On one device a call is served by its key's executable
+(runtime/executable.py): buffers kept for the key, with pinned host
+staging, and on the card, from the key's second request on, one captured
+CUDA graph of the rows function, replayed (its first request launches
+eagerly on the staged buffer).  The two multi-device paths run eagerly.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
-from typing import Any, Callable, NamedTuple, Sequence
+from typing import Any, Callable, ContextManager, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -53,6 +60,12 @@ from ..ops.weights import bf16_split, gaussian_kernel_f32, weights_to_torch
 from ..parallel.mesh import make_mesh
 from ..parallel.spatial import make_sharded_filter, spatial_h_target
 from .device import resolve
+from .executable import (
+    ExecutableCache,
+    FilterExecutable,
+    batch_cache_key,
+    executable_cache_key,
+)
 from .timing import exclusive, timed
 
 Rows = torch.Tensor
@@ -67,15 +80,24 @@ def _check_filter(filter_name: str) -> None:
 
 
 class _Call(NamedTuple):
-    """One request's device work, prepared: its operands are on the
-    device(s) already, so `run` is the whole timed region."""
+    """One request's device work, prepared: inside `staged()` its operands
+    are on the device(s), so `run` is the whole timed region."""
 
-    key: tuple                           # the warm key
+    key: tuple                           # the warm or executable key
     run: Callable[[], Any]               # the device work
     devices: tuple[torch.device, ...]    # where it runs
     finish: Callable[[Any], np.ndarray]  # to the host, cropped
     path: str                            # the profiler's "Serving Path"
     level: int                           # the level whose function serves
+    executable: FilterExecutable | None = None  # None: an eager mesh path
+    rows: np.ndarray | None = None       # the request's rows, to stage
+
+    def staged(self) -> ContextManager:
+        """Where `run` and `finish` may be called: the executable held for
+        this request with its rows staged (built first if need be)."""
+        if self.executable is None:
+            return contextlib.nullcontext()
+        return self.executable.staged(self.rows)
 
 
 def _mesh_spatial_min_rows() -> int:
@@ -84,6 +106,14 @@ def _mesh_spatial_min_rows() -> int:
                                   "64"))
     except ValueError:
         return 64
+
+
+def _taps(filter_name: str, sigma: float, radius: int) -> np.ndarray | None:
+    """The gaussian's f32 tap table, which its executable bakes in; None for
+    the other filters."""
+    if filter_name != "gaussian":
+        return None
+    return gaussian_kernel_f32(radius, float(sigma))
 
 
 def _zero_true_border(out: np.ndarray) -> np.ndarray:
@@ -121,10 +151,12 @@ class FilterRuntime:
                              for i in range(torch.cuda.device_count())]
                             if self.device.type == "cuda" else [self.device])
         self.mesh_devices = tuple(resolve(d) for d in mesh_devices)
-        # Keys whose untimed first run is done (that run builds the kernels
-        # and warms the allocator), each with the host's time to enqueue the
-        # call in ms, which sizes the card's spin before the timed runs
-        # (runtime/timing.py).
+        # The one-device calls' executables (runtime/executable.py).
+        self.executables = ExecutableCache(config.EXECUTABLE_CACHE_SIZE)
+        # The eager multi-device paths' keys whose untimed first run is done
+        # (that run builds the kernels and warms the allocator), each with
+        # the host's time to enqueue the call in ms, which sizes the card's
+        # spin before the timed runs (runtime/timing.py).
         self._warm: dict[tuple, float] = {}
 
     def _mesh_spatial_n(self, height: int) -> int:
@@ -181,6 +213,13 @@ class FilterRuntime:
         return lvl
 
     def _timed(self, call: _Call) -> tuple[Any, float]:
+        """(the last run's output, time_ms) of a staged call; a call's
+        first run is untimed (for an executable, its build made it)."""
+        exe = call.executable
+        if exe is not None:
+            out, ms, exe.enqueue_ms = timed(
+                call.run, call.devices, config.TIMING_REPS, exe.enqueue_ms)
+            return out, ms
         if call.key not in self._warm:
             with exclusive(call.devices):
                 t0 = time.perf_counter()
@@ -200,13 +239,26 @@ class FilterRuntime:
         n = self._mesh_spatial_n(height) if mesh else 0
         if n:
             return self._spatial_call(filter_name, lvl, host, sigma, radius, n)
-        fn = self._rows_fn(filter_name, lvl, sigma, radius, width, channels)
-        rows = torch.from_numpy(host.reshape(height, -1)).to(self.device)
-        return _Call(
-            (filter_name, lvl, 1, height, width, channels, radius),
-            lambda: fn(rows), (self.device,),
-            lambda out: out.cpu().numpy().reshape(height, width, channels),
-            "single_image", lvl)
+        key = executable_cache_key(filter_name, lvl, height, width, channels,
+                                   radius, _taps(filter_name, sigma, radius),
+                                   self.device)
+        return self._executable_call(
+            key, filter_name, lvl, sigma, radius, host.reshape(height, -1),
+            (height, width, channels), "single_image")
+
+    def _executable_call(self, key: tuple, filter_name: str, lvl: int,
+                         sigma: float, radius: int, rows: np.ndarray,
+                         shape: tuple[int, ...], path: str) -> _Call:
+        """The call of `rows` through the executable of `key` on the
+        runtime's device."""
+        width, channels = shape[-2:]
+        exe = self.executables.get(key, lambda: FilterExecutable(
+            key, lambda: self._rows_fn(filter_name, lvl, sigma, radius, width,
+                                       channels),
+            rows.shape, self.device))
+        return _Call(key, exe.run, (self.device,),
+                     lambda out: exe.fetch(out).reshape(shape), path, lvl,
+                     exe, rows)
 
     def _spatial_call(self, filter_name: str, lvl: int, image: np.ndarray,
                       sigma: float, radius: int, n: int) -> _Call:
@@ -262,15 +314,16 @@ class FilterRuntime:
         height, width, channels = validate_image_shape(images.shape[1:])
         lvl = self._validate(filter_name, level, sigma, radius)
         host = np.require(images, np.uint8, ["C", "W"]).reshape(batch, height, -1)
-        key = (filter_name, lvl, batch, height, width, channels, radius)
         shape = (batch, height, width, channels)
         n = self._mesh_batch_n()
         if not n:
-            fn = self._rows_fn(filter_name, lvl, sigma, radius, width, channels)
-            rows = torch.from_numpy(host).to(self.device)
-            return _Call(key, lambda: fn(rows), (self.device,),
-                         lambda out: out.cpu().numpy().reshape(shape), "batch",
-                         lvl)
+            key = batch_cache_key(filter_name, lvl, batch, height, width,
+                                  channels, radius,
+                                  _taps(filter_name, sigma, radius),
+                                  self.device)
+            return self._executable_call(key, filter_name, lvl, sigma, radius,
+                                         host, shape, "batch")
+        key = (filter_name, lvl, batch, height, width, channels, radius)
         if batch % n:
             host = np.concatenate([host, np.repeat(host[-1:], -batch % n, 0)])
         mesh = make_mesh(n, dp=n, sp=1, devices=list(self.mesh_devices))
@@ -293,10 +346,28 @@ class FilterRuntime:
                  ) -> tuple[np.ndarray, PerformanceMetrics]:
         call = self._single_call(filter_name, image, level, sigma, radius,
                                  mesh)
-        out, ms = self._timed(call)
+        with call.staged():
+            out, ms = self._timed(call)
+            result = call.finish(out)
         height, width, channels = image.shape
-        return call.finish(out), compute_metrics(
+        return result, compute_metrics(
             ms, width, height, channels, FILTERS[filter_name].bytes_factor)
+
+    def launch_once(self, filter_name: str, image: np.ndarray, level: int,
+                    sigma: float = config.DEFAULT_SIGMA,
+                    radius: int = config.DEFAULT_RADIUS) -> np.ndarray:
+        """The served function of one (H, W, C) image on the runtime's
+        device, run once, eagerly and untimed, holding the card: it builds
+        and loads the kernels, and builds no executable (the server's
+        start-up warm)."""
+        height, width, channels = validate_image_shape(image.shape)
+        lvl = self._validate(filter_name, level, sigma, radius)
+        rows = torch.from_numpy(
+            np.ascontiguousarray(image, np.uint8).reshape(height, -1))
+        with exclusive((self.device,)):
+            fn = self._rows_fn(filter_name, lvl, sigma, radius, width, channels)
+            out = fn(rows.to(self.device)).cpu()
+        return out.numpy().reshape(height, width, channels)
 
     # -- public API --------------------------------------------------------
 
@@ -366,9 +437,11 @@ class FilterRuntime:
         The metrics are for the whole batch; fps counts images per second.
         """
         call = self._batch_call(filter_name, images, level, sigma, radius)
-        out, ms = self._timed(call)
+        with call.staged():
+            out, ms = self._timed(call)
+            result = call.finish(out)
         batch, height, width, channels = images.shape
         metrics = compute_metrics(ms, width, height, channels * batch,
                                   FILTERS[filter_name].bytes_factor)
         metrics.fps = batch * 1000.0 / max(metrics.time_ms, 1e-6)
-        return call.finish(out), metrics
+        return result, metrics

@@ -10,7 +10,7 @@ test_client.py) work against this server unchanged:
     GET  /api/health         {"status", "gpu_available"}
     GET  /api/filters        filter catalog with parameter ranges
     GET  /api/stats          request counters, kernel launches, phase times,
-                             decode tiers
+                             decode tiers, the runtime's executables
     POST /api/process        one filter, one level (1, 2 or 4)
     POST /api/process-all    level_1 + level_2 comparison (+ optional profiling)
     POST /api/process-batch  many same-size images in one launch per kernel
@@ -91,7 +91,8 @@ def start_runtime(device: str) -> tuple[FilterRuntime | None, str | None]:
 
 def warm_kernels(runtime: FilterRuntime) -> None:
     """Build every library and launch every kernel once on a tiny image,
-    so the first request does not pay a build."""
+    so the first request does not pay a build.  The launches are eager:
+    no executable is built for a shape no request sends."""
     if runtime.device.type == "cuda":
         build.build_all()
     img = np.zeros((8, 8, 3), np.uint8)
@@ -99,8 +100,8 @@ def warm_kernels(runtime: FilterRuntime) -> None:
     native_codec.jpeg_decode(native_codec.jpeg_encode(img))
     for filter_name in FILTERS:
         for level in config.REQUEST_LEVELS:
-            runtime.run(filter_name, img, level=level, radius=2)
-    runtime.run("gaussian", img, level=4, radius=3)   # the band kernel
+            runtime.launch_once(filter_name, img, level, radius=2)
+    runtime.launch_once("gaussian", img, 4, radius=3)   # the band kernel
 
 
 class _PhaseTimer:
@@ -232,8 +233,9 @@ def create_app(runtime: FilterRuntime | None = None,
 
     @app.get("/api/stats")
     def server_stats(_req: Request):
-        """Request counters, kernel launches per kernel, and per-route
-        host-clock totals of each phase."""
+        """Request counters, kernel launches per kernel, the runtime's
+        executables and the bytes they hold, and per-route host-clock
+        totals of each phase."""
         with lock:
             phase_ms = {k: dict(v) for k, v in stats["phase_ms"].items()}
             by_route = dict(stats["by_route"])
@@ -245,6 +247,8 @@ def create_app(runtime: FilterRuntime | None = None,
             "device": str(runtime.device) if available else None,
             "gpu_available": available,
             "kernel_launches": dict(LAUNCHES),
+            "executables": (runtime.executables.stats() if available
+                            else None),
             "phase_ms": phase_ms,
             "decode_tiers": decode_tier_counts(),
         }

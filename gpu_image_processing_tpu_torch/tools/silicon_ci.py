@@ -244,7 +244,11 @@ def drive_server(launcher: Launcher, device: str, lines: list[str],
     t = time.perf_counter()
     loadgen = str(build.build_loadgen())
     steps["build_loadgen"] = time.perf_counter() - t
-    launches0 = http_json(base + "/api/stats")[1]["kernel_launches"]
+    stats0 = http_json(base + "/api/stats")[1]
+    launches0 = stats0["kernel_launches"]
+    # What the server's executables hold before and after each loadgen run:
+    # bounded whatever the load.
+    held = details["executables"] = {"before": stats0["executables"]}
     t = time.perf_counter()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -258,6 +262,7 @@ def drive_server(launcher: Launcher, device: str, lines: list[str],
     details["loadgen_small"] = small = parse_loadgen(tail)
     lines.append(f"loadgen /api/process built-in {SMALL_LOAD[0]}x"
                  f"{SMALL_LOAD[1]}: {json.dumps(small)}")
+    held["after_small"] = http_json(base + "/api/stats")[1]["executables"]
 
     t = time.perf_counter()
     payload = full_size_payload()
@@ -294,7 +299,10 @@ def drive_server(launcher: Launcher, device: str, lines: list[str],
         details["loadgen_full"] = full = parse_loadgen(log.read())
     lines.append(f"loadgen /api/process-all {FULL[1]}x{FULL[0]} PNG "
                  f"{FULL_LOAD[0]}x{FULL_LOAD[1]}: {json.dumps(full)}")
-    launches1 = http_json(base + "/api/stats")[1]["kernel_launches"]
+    stats1 = http_json(base + "/api/stats")[1]
+    launches1 = stats1["kernel_launches"]
+    held["after_full"] = stats1["executables"]
+    lines.append(f"executables held: {json.dumps(held)}")
     details["launches"] = {k: v - launches0.get(k, 0)
                            for k, v in launches1.items()
                            if v - launches0.get(k, 0)}

@@ -346,10 +346,16 @@ def main(argv: list[str] | None = None) -> int:
     report = []
     with OraclePool(args.workers) as pool:
         before = dict(LAUNCHES)
-        sections = [section_rows(rt, pool, rng, edge_rng, n),
-                    section_gaussian(rt, pool, rng, edge_rng, n // 2)]
+        # What the runtime's executables hold after each section: bounded
+        # by the cache's limit whatever the shapes.
+        held = []
+        sections = [section_rows(rt, pool, rng, edge_rng, n)]
+        held.append(rt.executables.stats())
+        sections.append(section_gaussian(rt, pool, rng, edge_rng, n // 2))
+        held.append(rt.executables.stats())
         planar_before = dict(LAUNCHES)
         sections.append(section_planar(rt, pool, planar_rng, n // 3))
+        held.append(rt.executables.stats())
         planar_launches = {k: LAUNCHES[k] - planar_before.get(k, 0)
                            for k in PLANAR_KERNELS}
         for sec in sections:
@@ -362,10 +368,12 @@ def main(argv: list[str] | None = None) -> int:
             failures += len(bad) + len(sec.errors)
             report.append({"section": sec.name,
                            "trials": len(sec.trials) + len(sec.errors),
-                           "mismatches": bad, "exceptions": sec.errors})
+                           "mismatches": bad, "exceptions": sec.errors,
+                           "executables": held[len(report)]})
             print(f"section {sec.name}: {len(sec.trials) + len(sec.errors)} "
                   f"trials, {len(bad)} mismatches, {len(sec.errors)} "
-                  f"exceptions", flush=True)
+                  f"exceptions; executables after it "
+                  f"{json.dumps(held[len(report) - 1])}", flush=True)
     # On the card every planar kernel must have run in section 3.
     if rt.device.type == "cuda":
         missing = [k for k, v in planar_launches.items() if not v]

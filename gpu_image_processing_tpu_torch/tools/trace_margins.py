@@ -21,7 +21,8 @@ call cycles through gaussian (r = 3), box (r = 5) and Sobel at level 2 on
 a seeded 2146x3239x3 image.  For each session it compares the hand-kernel
 launches in the trace (`profiler.traced_launches`) with `ops.cuda.LAUNCHES`,
 counts the torch kernels (the multiplies) in the trace, finds which
-kernel launches on the host (the `cudaLaunchKernel` events), in order, have
+kernel launches on the host (the `cudaLaunchKernel` events, and the
+`cudaGraphLaunch` of a served call's graph), in order, have
 their kernel in the trace, and takes the least skew of a kernel's device
 start behind the start of its launch: a negative skew is a kernel dated
 before it was launched.
@@ -78,31 +79,36 @@ def session(rt, image, filt: str, radius: int,
 
     lead_ms, tail_ms, idle_ms, primers = condition
     call = rt._single_call(filt, image, 2, 2.0, radius)
-    with exclusive(call.devices):
-        call.run()
-    device = call.devices[0]
-    torch.cuda.synchronize(device)
-    time.sleep(idle_ms / 1e3)
-    with profiler._SESSION_LOCK, exclusive(call.devices):
+    # The served call: its executable held with the image staged, so the
+    # session traces the runs that serve it (its graph's replays once the
+    # key has repeated).
+    with call.staged():
+        with exclusive(call.devices):
+            call.run()
+        device = call.devices[0]
         torch.cuda.synchronize(device)
-        made = sum(LAUNCHES.values())
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(primers):
-                torch.cuda._sleep(1)
-            time.sleep(lead_ms / 1e3)
-            for _ in range(REPS):
-                call.run()
-                scratch.mul_(1.0)
+        time.sleep(idle_ms / 1e3)
+        with profiler._SESSION_LOCK, exclusive(call.devices):
             torch.cuda.synchronize(device)
-            time.sleep(tail_ms / 1e3)
-        made = sum(LAUNCHES.values()) - made
+            made = sum(LAUNCHES.values())
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(primers):
+                    torch.cuda._sleep(1)
+                time.sleep(lead_ms / 1e3)
+                for _ in range(REPS):
+                    call.run()
+                    scratch.mul_(1.0)
+                torch.cuda.synchronize(device)
+                time.sleep(tail_ms / 1e3)
+            made = sum(LAUNCHES.values()) - made
     averages = prof.key_averages()
     counts = profiler.traced_launches(profiler._trace_kernels(averages, REPS))
     events = prof.profiler.kineto_results.events()
     cuda = torch.autograd.DeviceType.CUDA
     launches = sorted((e.start_ns(), e.correlation_id()) for e in events
-                      if e.device_type() != cuda and "LaunchKernel" in e.name())
+                      if e.device_type() != cuda
+                      and ("LaunchKernel" in e.name() or "GraphLaunch" in e.name()))
     started = {}
     for e in events:
         if e.device_type() == cuda:

@@ -225,8 +225,9 @@ def test_runtime_keeps_each_keys_enqueue_time(rng):
     img = make_image(rng, 12, 14, 3)
     rt.box_blur(img, 2, 2)
     rt.box_blur(img, 2, 2)
-    (key, enqueue_ms), = rt._warm.items()
-    assert key[:2] == ("box", 2) and enqueue_ms > 0
+    (key,) = rt.executables
+    exe = next(iter(rt.executables.values()))
+    assert key[:2] == ("box", 2) and exe.enqueue_ms > 0
 
 
 @pytest.mark.cuda

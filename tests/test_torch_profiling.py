@@ -435,25 +435,28 @@ def test_a_trace_that_lost_launches_is_refused(rows, made, traced):
 
 
 def test_a_session_that_lost_launches_is_opened_again(monkeypatch):
-    """On the card a profile opens another session while its trace misses a
-    launch, `SESSION_ATTEMPTS` at most, and reports how many it took."""
+    """On the card a profile opens another session, with twice the lead and
+    four times the primers, while its trace misses a launch,
+    `SESSION_ATTEMPTS` at most, and reports how many it took."""
     card = (torch.device("cuda", 0),)
     sessions = []
 
-    def session(devices, run, reps):
-        sessions.append(devices)
+    def session(devices, run, reps, lead_s, primers):
+        sessions.append((lead_s, primers))
         lost = len(sessions) < 3
         return _rows({GAUSS_ROW: 9 if lost else 10}), 10, 1 << 20, 16
 
     monkeypatch.setattr(profiler, "_session", session)
     times, kernels, peak, account = profiler._measure(card, lambda: None, 10)
     assert len(sessions) == 3 and kernels[GAUSS_ROW]["count"] == 10
-    assert account == {"Trace Sessions": 3, "Trace Primers Kept": "16 of 16"}
+    assert sessions == [(profiler.SESSION_LEAD_S * k, profiler.PRIMERS * k * k)
+                        for k in (1, 2, 4)]
+    assert account == {"Trace Sessions": 3, "Trace Primers Kept": "16 of 256"}
     assert times == [pytest.approx(0.07)] * 10 and peak == 1 << 20
     sessions.clear()
     monkeypatch.setattr(profiler, "SESSION_ATTEMPTS", 2)
     with pytest.raises(profiler.LostLaunches, match=(
             "9 hand-kernel launches where 10 were made .*, in each of 2 "
-            "sessions")):
+            "sessions \\(the last with a 40 ms lead, 16 of 64 primers kept\\)")):
         profiler._measure(card, lambda: None, 10)
     assert len(sessions) == 2

@@ -378,6 +378,19 @@ def test_stats_counts_requests_launches_and_phases():
     assert tiers["zlib_png"] == was["zlib_png"]
 
 
+def test_stats_report_the_runtimes_executables():
+    rt = FilterRuntime("cpu")
+    app = create_app(rt)
+    for level in (1, 2, 1):
+        app.dispatch(Request(method="POST", path="/api/process",
+                             json={"image": GOOD, "filter": "box",
+                                   "level": level}))
+    stats = app.dispatch(Request(method="GET", path="/api/stats"))[1]
+    assert stats["executables"] == rt.executables.stats()
+    assert stats["executables"]["executables"] == 2
+    assert stats["executables"]["pinned_bytes"] == 0   # nothing pinned here
+
+
 def test_without_a_card_the_process_endpoints_answer_503():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")
@@ -393,11 +406,18 @@ def test_without_a_card_the_process_endpoints_answer_503():
     assert start_runtime("cpu")[0].device == torch.device("cpu")
 
 
-def test_warm_kernels_runs_every_level_on_the_cpu():
+def test_warm_kernels_runs_every_level_on_the_cpu(monkeypatch):
     rt = FilterRuntime("cpu")
+    ran = []
+    rows_fn = rt._rows_fn
+    monkeypatch.setattr(rt, "_rows_fn", lambda f, lvl, *a: (
+        ran.append((f, lvl)), rows_fn(f, lvl, *a))[1])
     warm_kernels(rt)
-    assert {key[:2] for key in rt._warm} == {
+    assert set(ran) == {
         (f, lv) for f in ("gaussian", "box", "sobel") for lv in (1, 2, 4)}
+    # Eager launches on a tiny image: no executable for a shape no request
+    # sends.
+    assert len(rt.executables) == 0 and rt._warm == {}
 
 
 def test_live_socket_round_trip():

@@ -25,6 +25,10 @@ def test_soak_passes_on_cpu(tmp_path, capsys):
     report = json.loads((tmp_path / "soak.json").read_text())
     assert [s["trials"] for s in report["sections"]] == [30, 15, 10]
     assert report["failures"] == 0 and report["seed"] == soak.SEED
+    # Every shape a key, the runtime's executables stay within the limit.
+    held = [s["executables"] for s in report["sections"]]
+    assert [h["executables"] for h in held[:2]] == [8, 8]
+    assert all(h["executables"] <= h["limit"] == 8 for h in held)
 
 
 def test_planted_fault_fails_the_soak(tmp_path, monkeypatch, capsys):

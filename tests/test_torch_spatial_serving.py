@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from gpu_image_processing_tpu.runtime.dispatch import RUNTIME as JAX_RUNTIME
+from gpu_image_processing_tpu_torch.core import config
 from gpu_image_processing_tpu_torch.ops.cuda import LAUNCHES
 from gpu_image_processing_tpu_torch.parallel.spatial import ShardedFilter
 from gpu_image_processing_tpu_torch.profiling.profiler import (
@@ -153,7 +154,7 @@ def test_small_images_stay_on_one_device(spatial_env, monkeypatch, rt8):
     img = rng.integers(0, 256, (32, 40, 3), np.uint8)
     rt8.box_blur(img, radius=3, level=2)
     assert _spatial_keys(rt8) == []
-    assert list(rt8._warm) == [("box", 2, 1, 32, 40, 3, 3)]
+    assert [k[:7] for k in rt8.executables] == [("box", 2, 1, 32, 40, 3, 3)]
 
 
 def test_switch_off_and_one_device_keep_single_device_paths(monkeypatch):
@@ -169,8 +170,11 @@ def test_switch_off_and_one_device_keep_single_device_paths(monkeypatch):
     one = FilterRuntime("cpu")
     one.box_blur(img, 2, 2)
     one.run_batch("box", np.stack([img] * 3), level=2, radius=2)
-    assert list(rt._warm) == [("box", 2, 1, 64, 40, 3, 2)]
-    assert list(one._warm) == [("box", 2, 1, 64, 40, 3, 2), ("box", 2, 3, 64, 40, 3, 2)]
+    assert rt._warm == {} and one._warm == {}
+    assert [k[:7] for k in rt.executables] == [("box", 2, 1, 64, 40, 3, 2)]
+    assert [k[:8] for k in one.executables] == [
+        ("box", 2, 1, 64, 40, 3, 2, None),
+        ("batch", "box", 2, 3, 64, 40, 3, 2)]
 
 
 def test_run_all_levels_stays_on_one_device(spatial_env, rt8):
@@ -283,7 +287,10 @@ def test_spatial_and_mesh_batch_serving_on_one_card(monkeypatch):
     LAUNCHES.clear()
     got, _ = rt.run_batch("gaussian", np.stack([img] * 5), level=2, sigma=2.0,
                           radius=3)
-    # 5 images padded to 8, one launch on each of the 4 blocks.
-    assert LAUNCHES["gaussian_rows"] == 4
+    # 5 images padded to 8, one launch on each of the 4 blocks a run: the
+    # untimed first run, TIMING_REPS timed ones and any timed run that went
+    # again because the card idled (runtime/timing.py).
+    runs, rest = divmod(LAUNCHES["gaussian_rows"], 4)
+    assert rest == 0 and runs >= 1 + config.TIMING_REPS
     for i in range(5):
         np.testing.assert_array_equal(got[i], single)
