@@ -57,12 +57,7 @@ Phases, each of which fails the run on its own:
    time must be within 15% of `time_ms`; /api/process-batch with 4 images
    at levels 2 and 4 (one profiled), an error probe; the six rows kernels'
    launch counts read around that run, each request's wall split into
-   decode, run, encode and profile; then the codec's split on the scene's
-   PNG and JPEG through the port's library of gip_codec.cpp (base64,
-   `png_decode` through gip_png_decode, the zlib tier's `decode_png`
-   (its checks, then gip_png_decode) and `decode_png16` (through
-   gip_png_decode16), JPEG decode; the answer's `png_encode`
-   through gip_png_encode, and its size);
+   decode, run, encode and profile;
 6. planar path: (a) the models (`GaussianBlur`, `BoxBlur`,
    `SobelEdgeDetection`, an `nn.Sequential` of two), the six registry
    keys and `entry()` on the full image on the card, each equal to the
@@ -522,47 +517,6 @@ def cycled_png(values: np.ndarray, depth: int, colour: int, extra=()) -> bytes:
     lines[:, 0] = kinds
     lines[:, 1:] = (x - pred) & 0xFF
     return png_file(lines, w, depth, colour, extra)
-
-
-def best_ms(fn, reps: int = 3) -> float:
-    """Least host-clock ms of `reps` calls of `fn`."""
-    best = float("inf")
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        best = min(best, (time.perf_counter() - t0) * 1000.0)
-    return best
-
-
-def codec_split(png: bytes, jpeg: bytes, answer: np.ndarray) -> dict[str, float]:
-    """Host-clock ms (least of 3) of each step of the server's codec,
-    through the port's library of native/src/gip_codec.cpp: the two
-    uploads' decodes (base64; for the PNG `png_decode` through
-    gip_png_decode, as the server reads it, the zlib tier's `decode_png`,
-    its checks then gip_png_decode, as the upload endpoint and the CLI read
-    it, and its `decode_png16` through gip_png_decode16; the native decoder
-    for the JPEG) and the PNG encode of an answer (`png_encode` through
-    gip_png_encode: Sub rows, deflate at level 1 with run-length matching;
-    base64); and the answer's size."""
-    png_text, jpeg_text = (base64.b64encode(x) for x in (png, jpeg))
-    out = encode_png(answer)
-    steps = {
-        "PNG upload: base64 decode": best_ms(lambda: base64.b64decode(png_text)),
-        "PNG upload: png_decode (gip_png_decode)": best_ms(
-            lambda: native_codec.png_decode(png)),
-        "PNG upload: zlib-tier decode_png (gip_png_decode)": best_ms(
-            lambda: decode_png(png)),
-        "PNG upload: zlib-tier decode_png16 (gip_png_decode16)": best_ms(
-            lambda: codec.decode_png16(png)),
-        "JPEG upload: base64 decode": best_ms(lambda: base64.b64decode(jpeg_text)),
-        "JPEG upload: native JPEG decode": best_ms(
-            lambda: native_codec.jpeg_decode(jpeg)),
-        "PNG answer: png_encode (gip_png_encode)": best_ms(
-            lambda: encode_png(answer)),
-        "PNG answer: base64 encode": best_ms(lambda: base64.b64encode(out)),
-    }
-    steps["PNG answer bytes"] = float(len(out))
-    return steps
 
 
 def gradient_image(rng: np.random.Generator, k: int) -> np.ndarray:
@@ -2233,11 +2187,6 @@ def main() -> int:
             f"time_ms {g['time_ms']:.4f} ms")
     print(f"profiles: level 2 lists the hand kernels alone; gaussian L2 profiled "
           f"time / time_ms {ratio:.3f}")
-    # The codec's split on the scene's uploads and its PNG answer.
-    split = codec_split(scene_png, scene_jpeg, served[("gaussian", 2)])
-    print(f"[{card}] codec split at {w}x{h} (host clock, ms, least of 3): "
-          + ", ".join(f"{k} {int(v)}" if "bytes" in k else f"{k} {v:.1f}"
-                      for k, v in split.items()))
 
     # The served pixels against direct calls and the level-2 / plain results.
     for (f, lv), got in served.items():

@@ -14,6 +14,8 @@ an `nn.Module` with two faces:
   runtime, which targets the card unless the caller asked for the CPU.
 
 Parameters are validated in `__init__` with the JAX package's errors.
+Each `forward` is the span `models.forward` (core/spans.py), with the
+kernels' `ops.launch` inside.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from torch import nn
 
 from ..api.filters import get_runtime
-from ..core import config
+from ..core import config, spans
 from ..core.params import (
     normalize_level,
     validate_box_params,
@@ -75,11 +77,13 @@ class GaussianBlur(nn.Module):
         tensor (level 1 moves it to the image's device; levels 2 and 4 take
         it on the host or the image's device), or a numpy table such as the
         JAX model's `weights`, taken bit for bit."""
-        if normalize_level("gaussian", self.level) == 1:
-            w = self.weights if weights is None else table(weights).to(image.device)
-            return ref.gaussian_blur(image, w, self.radius)
-        w = self.host_weights if weights is None else table(weights)
-        return _level2("gaussian")(image, w, self.radius)
+        with spans.span("models.forward"):
+            if normalize_level("gaussian", self.level) == 1:
+                w = (self.weights if weights is None
+                     else table(weights).to(image.device))
+                return ref.gaussian_blur(image, w, self.radius)
+            w = self.host_weights if weights is None else table(weights)
+            return _level2("gaussian")(image, w, self.radius)
 
     def run(self, image: np.ndarray, runtime: FilterRuntime | None = None
             ) -> tuple[np.ndarray, dict]:
@@ -101,9 +105,10 @@ class BoxBlur(nn.Module):
         self.radius, self.level = radius, level
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:
-        lvl = normalize_level("box", self.level)
-        impl = ref.box_blur if lvl == 1 else _level2("box")
-        return impl(image, self.radius)
+        with spans.span("models.forward"):
+            lvl = normalize_level("box", self.level)
+            impl = ref.box_blur if lvl == 1 else _level2("box")
+            return impl(image, self.radius)
 
     def run(self, image: np.ndarray, runtime: FilterRuntime | None = None
             ) -> tuple[np.ndarray, dict]:
@@ -124,9 +129,10 @@ class SobelEdgeDetection(nn.Module):
         self.level = level
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:
-        if normalize_level("sobel", self.level) == 1:
-            return ref.sobel(image, 1)
-        return _level2("sobel")(image)
+        with spans.span("models.forward"):
+            if normalize_level("sobel", self.level) == 1:
+                return ref.sobel(image, 1)
+            return _level2("sobel")(image)
 
     def run(self, image: np.ndarray, runtime: FilterRuntime | None = None
             ) -> tuple[np.ndarray, dict]:

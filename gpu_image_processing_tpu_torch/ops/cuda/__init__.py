@@ -6,7 +6,8 @@ kernels its main path went through.  The wrappers count through
 `count_launch`: a thread that captures a CUDA graph counts its own calls
 apart (`counted_apart`), since the capture launches nothing and each replay
 of the graph counts them; every other thread counts into `LAUNCHES`
-meanwhile.
+meanwhile.  Each wrapper's host work and its ctypes launch is the span
+`ops.launch` (core/spans.py).
 """
 
 import contextlib

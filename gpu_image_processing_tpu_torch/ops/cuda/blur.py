@@ -35,6 +35,7 @@ import ctypes
 
 import torch
 
+from ...core import spans
 from .. import interleaved
 from ..weights import box_inv_taps_f32
 from . import build, count_launch
@@ -130,22 +131,23 @@ def _launch(fn_name: str, rows: torch.Tensor, channels: int, radius: int,
     image's size (if `scratch`), output, its weight tables (or the box's
     scale; first, `taps` as a host array, read once the library has
     loaded), then radius, batch, height, width, channels."""
-    batch, height, width = check_rows(rows, channels)
-    if radius < 1:
-        raise ValueError(f"radius must be >= 1; got {radius}")
-    lib = library(rows.device)
-    if taps is not None:
-        tables_or_scale = (host_taps(taps), *tables_or_scale)
-    out = torch.empty_like(rows)
-    buffers = [rows.data_ptr(), out.data_ptr()]
-    if scratch:
-        buffers.insert(1, torch.empty_like(rows).data_ptr())
-    with torch.cuda.device(rows.device):
-        code = getattr(lib, fn_name)(
-            *buffers, *tables_or_scale, radius, batch, height, width, channels,
-            build.stream_handle(rows.device))
-    build.check(lib, code, fn_name)
-    return out
+    with spans.span("ops.launch"):
+        batch, height, width = check_rows(rows, channels)
+        if radius < 1:
+            raise ValueError(f"radius must be >= 1; got {radius}")
+        lib = library(rows.device)
+        if taps is not None:
+            tables_or_scale = (host_taps(taps), *tables_or_scale)
+        out = torch.empty_like(rows)
+        buffers = [rows.data_ptr(), out.data_ptr()]
+        if scratch:
+            buffers.insert(1, torch.empty_like(rows).data_ptr())
+        with torch.cuda.device(rows.device):
+            code = getattr(lib, fn_name)(
+                *buffers, *tables_or_scale, radius, batch, height, width,
+                channels, build.stream_handle(rows.device))
+        build.check(lib, code, fn_name)
+        return out
 
 
 def _launch_gaussian(fn_name: str, rows: torch.Tensor, weights: torch.Tensor,

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core import spans
 from ...core.config import MAX_KERNEL_TAPS
 from .. import interleaved
 from ..weights import box_inv_taps_f32
@@ -87,19 +88,20 @@ def _launch(fn_name: str, planes: torch.Tensor, dims: tuple[int, int, int],
     """Launch one of blur.cu's planar functions; `table_or_scale` is the
     gaussian's table (a tensor, copied into the launch) or the box's f32
     scale."""
-    n, height, width = dims
-    lib = blur.library(planes.device)
-    if isinstance(table_or_scale, torch.Tensor):
-        table_or_scale = blur.host_taps(table_or_scale)
-    out = torch.empty((n, height, width), dtype=torch.uint8,
-                      device=planes.device)
-    with torch.cuda.device(planes.device):
-        code = getattr(lib, fn_name)(
-            planes.data_ptr(), out.data_ptr(), table_or_scale, radius, n,
-            height, width, int(rows_prepadded),
-            build.stream_handle(planes.device))
-    build.check(lib, code, fn_name)
-    return out
+    with spans.span("ops.launch"):
+        n, height, width = dims
+        lib = blur.library(planes.device)
+        if isinstance(table_or_scale, torch.Tensor):
+            table_or_scale = blur.host_taps(table_or_scale)
+        out = torch.empty((n, height, width), dtype=torch.uint8,
+                          device=planes.device)
+        with torch.cuda.device(planes.device):
+            code = getattr(lib, fn_name)(
+                planes.data_ptr(), out.data_ptr(), table_or_scale, radius, n,
+                height, width, int(rows_prepadded),
+                build.stream_handle(planes.device))
+        build.check(lib, code, fn_name)
+        return out
 
 
 def gaussian_planar(planes: torch.Tensor, weights: torch.Tensor, radius: int,

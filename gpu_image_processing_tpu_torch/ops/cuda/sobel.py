@@ -19,6 +19,7 @@ import ctypes
 
 import torch
 
+from ...core import spans
 from ...core.config import VALID_CHANNELS
 from .. import interleaved
 from . import build, count_launch
@@ -57,19 +58,20 @@ def library(device: torch.device) -> ctypes.CDLL:
 
 def _launch(fn_name: str, rows: torch.Tensor, width: int,
             channels: int) -> torch.Tensor:
-    batch, height, got_width = check_rows(rows, channels)
-    if channels not in VALID_CHANNELS or got_width != width:
-        raise ValueError(
-            f"expected {width} pixels of C in {VALID_CHANNELS}; got "
-            f"{got_width} of C={channels}")
-    lib = library(rows.device)
-    out = torch.empty_like(rows)
-    with torch.cuda.device(rows.device):
-        code = getattr(lib, fn_name)(rows.data_ptr(), out.data_ptr(), batch,
-                                     height, width, channels,
-                                     build.stream_handle(rows.device))
-    build.check(lib, code, fn_name)
-    return out
+    with spans.span("ops.launch"):
+        batch, height, got_width = check_rows(rows, channels)
+        if channels not in VALID_CHANNELS or got_width != width:
+            raise ValueError(
+                f"expected {width} pixels of C in {VALID_CHANNELS}; got "
+                f"{got_width} of C={channels}")
+        lib = library(rows.device)
+        out = torch.empty_like(rows)
+        with torch.cuda.device(rows.device):
+            code = getattr(lib, fn_name)(
+                rows.data_ptr(), out.data_ptr(), batch, height, width,
+                channels, build.stream_handle(rows.device))
+        build.check(lib, code, fn_name)
+        return out
 
 
 def sobel_rows(rows: torch.Tensor, width: int, channels: int) -> torch.Tensor:

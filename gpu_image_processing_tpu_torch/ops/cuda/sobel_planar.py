@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core import spans
 from ...core.config import VALID_CHANNELS
 from .. import interleaved
 from ..rounding import quantize_u8_f32
@@ -63,17 +64,18 @@ def check_planes(planes: torch.Tensor,
 
 def _launch(fn_name: str, planes: torch.Tensor, rows_prepadded: bool,
             zero_rows: bool) -> torch.Tensor:
-    batch, channels, height, width = check_planes(planes, rows_prepadded)
-    lib = sobel.library(planes.device)
-    out = torch.empty((*planes.shape[:-2], height, width), dtype=torch.uint8,
-                      device=planes.device)
-    with torch.cuda.device(planes.device):
-        code = getattr(lib, fn_name)(
-            planes.data_ptr(), out.data_ptr(), batch, channels, height, width,
-            int(rows_prepadded), int(zero_rows),
-            build.stream_handle(planes.device))
-    build.check(lib, code, fn_name)
-    return out
+    with spans.span("ops.launch"):
+        batch, channels, height, width = check_planes(planes, rows_prepadded)
+        lib = sobel.library(planes.device)
+        out = torch.empty((*planes.shape[:-2], height, width),
+                          dtype=torch.uint8, device=planes.device)
+        with torch.cuda.device(planes.device):
+            code = getattr(lib, fn_name)(
+                planes.data_ptr(), out.data_ptr(), batch, channels, height,
+                width, int(rows_prepadded), int(zero_rows),
+                build.stream_handle(planes.device))
+        build.check(lib, code, fn_name)
+        return out
 
 
 def sobel_planar(planes: torch.Tensor, rows_prepadded: bool = False,

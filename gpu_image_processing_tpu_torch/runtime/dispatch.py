@@ -31,6 +31,10 @@ On one device a call is served by its key's executable
 staging, and on the card, from the key's second request on, one captured
 CUDA graph of the rows function, replayed (its first request launches
 eagerly on the staged buffer).  The two multi-device paths run eagerly.
+
+A call is the span `runtime.call` (core/spans.py), which opens a request
+unless one is open on its thread (a server request's); its timed runs are
+`runtime.bracket`.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from typing import Any, Callable, ContextManager, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..core import config
+from ..core import config, spans
 from ..core.config import GAUSS_MXU_MIN_RADIUS
 from ..core.metrics import PerformanceMetrics, compute_metrics
 from ..core.params import (
@@ -214,19 +218,23 @@ class FilterRuntime:
 
     def _timed(self, call: _Call) -> tuple[Any, float]:
         """(the last run's output, time_ms) of a staged call; a call's
-        first run is untimed (for an executable, its build made it)."""
+        first run is untimed (for an executable, its build made it).  The
+        timed runs are the span `runtime.bracket`."""
         exe = call.executable
         if exe is not None:
-            out, ms, exe.enqueue_ms = timed(
-                call.run, call.devices, config.TIMING_REPS, exe.enqueue_ms)
+            with spans.span("runtime.bracket"):
+                out, ms, exe.enqueue_ms = timed(
+                    call.run, call.devices, config.TIMING_REPS, exe.enqueue_ms)
             return out, ms
         if call.key not in self._warm:
             with exclusive(call.devices):
                 t0 = time.perf_counter()
                 call.run()
                 self._warm[call.key] = (time.perf_counter() - t0) * 1000.0
-        out, ms, self._warm[call.key] = timed(
-            call.run, call.devices, config.TIMING_REPS, self._warm[call.key])
+        with spans.span("runtime.bracket"):
+            out, ms, self._warm[call.key] = timed(
+                call.run, call.devices, config.TIMING_REPS,
+                self._warm[call.key])
         return out, ms
 
     def _single_call(self, filter_name: str, image: np.ndarray, level: int,
@@ -255,7 +263,7 @@ class FilterRuntime:
         exe = self.executables.get(key, lambda: FilterExecutable(
             key, lambda: self._rows_fn(filter_name, lvl, sigma, radius, width,
                                        channels),
-            rows.shape, self.device))
+            rows.shape, self.device, self.executables.record))
         return _Call(key, exe.run, (self.device,),
                      lambda out: exe.fetch(out).reshape(shape), path, lvl,
                      exe, rows)
@@ -344,11 +352,12 @@ class FilterRuntime:
                  sigma: float = config.DEFAULT_SIGMA,
                  radius: int = config.DEFAULT_RADIUS, mesh: bool = True,
                  ) -> tuple[np.ndarray, PerformanceMetrics]:
-        call = self._single_call(filter_name, image, level, sigma, radius,
-                                 mesh)
-        with call.staged():
-            out, ms = self._timed(call)
-            result = call.finish(out)
+        with spans.request("runtime.call"):
+            call = self._single_call(filter_name, image, level, sigma, radius,
+                                     mesh)
+            with call.staged():
+                out, ms = self._timed(call)
+                result = call.finish(out)
         height, width, channels = image.shape
         return result, compute_metrics(
             ms, width, height, channels, FILTERS[filter_name].bytes_factor)
@@ -436,10 +445,11 @@ class FilterRuntime:
 
         The metrics are for the whole batch; fps counts images per second.
         """
-        call = self._batch_call(filter_name, images, level, sigma, radius)
-        with call.staged():
-            out, ms = self._timed(call)
-            result = call.finish(out)
+        with spans.request("runtime.call"):
+            call = self._batch_call(filter_name, images, level, sigma, radius)
+            with call.staged():
+                out, ms = self._timed(call)
+                result = call.finish(out)
         batch, height, width, channels = images.shape
         metrics = compute_metrics(ms, width, height, channels * batch,
                                   FILTERS[filter_name].bytes_factor)

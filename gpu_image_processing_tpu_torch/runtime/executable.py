@@ -42,6 +42,12 @@ them in (the JAX key leaves sigma out because its weights are an operand).
 On the CPU, which the caller asked for, the same executable serves with
 the same buffers, staging, lock, reuse and copy-out, the plain versions
 running eagerly: no graph, no pinning.
+
+Spans (core/spans.py): `exec.wait` (for the key's lock), `exec.stage`,
+`exec.build` (the untimed first run), `exec.capture` (the capture and its
+untimed replay), `exec.fetch` (the answer's allocation, the waits for the
+copy out and the host's copy) and `exec.evict`; the cache counts builds
+and captures and their ms whether spans are on or off.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from ..core import spans
 from ..ops.cuda import LAUNCHES, counted_apart
 from .timing import exclusive
 
@@ -103,8 +110,12 @@ class FilterExecutable:
     for every later request of its key."""
 
     def __init__(self, key: tuple, make_fn: Callable[[], RowsFn],
-                 shape: tuple[int, ...], device: torch.device):
+                 shape: tuple[int, ...], device: torch.device,
+                 report: Callable[[str, float], None] | None = None):
         self.key = key
+        #: Told ("build", ms) and ("capture", ms) as they happen (the
+        #: cache's counters), if given.
+        self._report = report
         self.shape = shape
         self.device = device
         self.capture_at = CAPTURE_AT
@@ -185,25 +196,28 @@ class FilterExecutable:
         """The request's rows on to the device buffer on this executable's
         stream: through the staging chunk by chunk, or without it straight
         from `rows` (pageable memory, which the driver stages)."""
-        src = torch.from_numpy(np.ascontiguousarray(rows).reshape(-1))
-        dev = self._rows.view(-1)
-        if self._host_in is None:
-            dev.copy_(src)
-            return
-        pinned = self._host_in.view(-1)
-        for part in self._parts:
-            pinned[part].copy_(src[part])
-            dev[part].copy_(pinned[part], non_blocking=True)
+        with spans.span("exec.stage"):
+            src = torch.from_numpy(np.ascontiguousarray(rows).reshape(-1))
+            dev = self._rows.view(-1)
+            if self._host_in is None:
+                dev.copy_(src)
+                return
+            pinned = self._host_in.view(-1)
+            for part in self._parts:
+                pinned[part].copy_(src[part])
+                dev[part].copy_(pinned[part], non_blocking=True)
 
     def _warm_up(self) -> None:
         """The untimed eager run on the staged rows, holding the card: it
         builds and loads the kernels, and times the host's enqueue."""
-        with exclusive((self.device,)):
+        with spans.stamped("exec.build") as stamps, exclusive((self.device,)):
             fn = self._make_fn()
             t0 = time.perf_counter()
             fn(self._rows)
             self.enqueue_ms = (time.perf_counter() - t0) * 1000.0
             self._fn = fn
+        if self._report is not None:
+            self._report("build", stamps.ms)
 
     def _capture(self) -> None:
         """The function captured on the staged buffer, on this executable's
@@ -214,7 +228,8 @@ class FilterExecutable:
         them.  The replay's host time sizes the next timed run's spin.
         `torch.cuda.graph` is not used: it synchronises the card and
         empties the device and pinned caches before each capture."""
-        with exclusive((self.device,)):
+        with spans.stamped("exec.capture") as stamps, \
+                exclusive((self.device,)):
             with torch.cuda.stream(self._stream):
                 t0 = time.perf_counter()
                 graph = torch.cuda.CUDAGraph()
@@ -234,6 +249,8 @@ class FilterExecutable:
             graph.replay()
             LAUNCHES.update(launches)
             self.enqueue_ms = (time.perf_counter() - t1) * 1000.0
+        if self._report is not None:
+            self._report("capture", stamps.ms)
 
     @contextlib.contextmanager
     def staged(self, rows: np.ndarray) -> Iterator["FilterExecutable"]:
@@ -244,7 +261,11 @@ class FilterExecutable:
         captures the graph.  This executable's stream is current
         meanwhile, so a timed bracket (which waits for the current stream)
         follows the copy in."""
-        with self._lock, self._stream_context():
+        with spans.span("exec.wait"):
+            self._lock.acquire()
+        with contextlib.ExitStack() as held:
+            held.callback(self._lock.release)
+            held.enter_context(self._stream_context())
             try:
                 repeat = self.requests + 1 >= self.capture_at
                 if self._rows is None or (repeat and self._host_in is None):
@@ -274,21 +295,22 @@ class FilterExecutable:
         """A run's output in a new host array of the key's shape: through
         the staging chunk by chunk (the host copies a chunk out while the
         card copies the next ones), or without it in one copy."""
-        answer = torch.empty(self.shape, dtype=torch.uint8)
-        if self._host_out is None:
-            answer.copy_(out.reshape(self.shape))
+        with spans.span("exec.fetch"):
+            answer = torch.empty(self.shape, dtype=torch.uint8)
+            if self._host_out is None:
+                answer.copy_(out.reshape(self.shape))
+                return answer.numpy()
+            flat, dst = out.reshape(-1), answer.view(-1)
+            pinned = self._host_out.view(-1)
+            for part, done in zip(self._parts, self._fetched):
+                pinned[part].copy_(flat[part], non_blocking=True)
+                if done is not None:
+                    done.record(self._stream)
+            for part, done in zip(self._parts, self._fetched):
+                if done is not None:
+                    done.synchronize()
+                dst[part].copy_(pinned[part])
             return answer.numpy()
-        flat, dst = out.reshape(-1), answer.view(-1)
-        pinned = self._host_out.view(-1)
-        for part, done in zip(self._parts, self._fetched):
-            pinned[part].copy_(flat[part], non_blocking=True)
-            if done is not None:
-                done.record(self._stream)
-        for part, done in zip(self._parts, self._fetched):
-            if done is not None:
-                done.synchronize()
-            dst[part].copy_(pinned[part])
-        return answer.numpy()
 
 
 class ExecutableCache:
@@ -306,6 +328,17 @@ class ExecutableCache:
         #: was made.
         self.requests = 0
         self.hits = 0
+        #: Builds (a key's untimed first run) and captures (the graph and
+        #: its untimed replay) of its executables and their host ms, since
+        #: the cache was made: an evicted key's are kept.
+        self.built = {"builds": 0, "build_ms": 0.0, "captures": 0,
+                      "capture_ms": 0.0}
+
+    def record(self, kind: str, ms: float) -> None:
+        """One "build" or "capture" of an executable, of `ms` host ms."""
+        with self._lock:
+            self.built[f"{kind}s"] += 1
+            self.built[f"{kind}_ms"] += ms
 
     def get(self, key: tuple, make: Callable[[], FilterExecutable]
             ) -> FilterExecutable:
@@ -317,7 +350,8 @@ class ExecutableCache:
             if exe is None:
                 exe = self._items[key] = make()
                 while len(self._items) > self.limit:
-                    self._items.popitem(last=False)
+                    with spans.span("exec.evict"):
+                        self._items.popitem(last=False)
                     self.evictions += 1
             else:
                 self.hits += 1
@@ -343,10 +377,12 @@ class ExecutableCache:
         allocator's blocks, in use and cached, each rounded up to a power
         of two) and the card's reserved bytes."""
         exes = self.values()
+        with self._lock:
+            built = dict(self.built)
         out = {"executables": len(exes),
                "captured": sum(e.captured for e in exes), "limit": self.limit,
                "evictions": self.evictions, "requests": self.requests,
-               "hits": self.hits,
+               "hits": self.hits, **built,
                "pinned_bytes": sum(e.pinned_bytes() for e in exes),
                "device_bytes": sum(e.device_bytes() for e in exes)}
         devices = {e.device for e in exes if e.device.type == "cuda"}

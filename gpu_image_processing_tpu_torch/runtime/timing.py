@@ -28,7 +28,8 @@ timing stream, which first waits for the caller's stream: other threads'
 brackets wait for the lock, and their copies, on their own streams, cannot
 land between the events.  A call's untimed first run and a profile's runs
 hold the lock too (`exclusive`), so no other launch shares the card with a
-bracket.
+bracket.  Waiting for the locks is the span `timing.wait`
+(core/spans.py); `stats()` counts the timed runs and the reruns.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ import time
 from typing import Any, Callable, Sequence
 
 import torch
+
+from ..core import spans
 
 #: The spin lasts SPIN_FACTOR times the host's enqueue time plus SPIN_PAD_MS.
 SPIN_FACTOR = 2.0
@@ -74,6 +77,25 @@ _CARDS: dict[torch.device, _CardTiming] = {}
 _CARDS_LOCK = threading.Lock()
 
 
+#: The process's timed runs (`brackets`) and the runs done again because
+#: the card idled inside a bracket (`reruns`), on every card.
+_STATS = {"brackets": 0, "reruns": 0}
+_STATS_LOCK = threading.Lock()
+
+
+def _count(key: str) -> None:
+    with _STATS_LOCK:
+        _STATS[key] += 1
+
+
+def stats() -> dict[str, int]:
+    """The process's timed runs (`brackets`, on the CPU too) and the runs
+    done again because the card idled inside the bracket (`reruns`): the
+    runtime's only wasted work."""
+    with _STATS_LOCK:
+        return dict(_STATS)
+
+
 def _card(device: torch.device) -> _CardTiming:
     with _CARDS_LOCK:
         if device not in _CARDS:
@@ -90,8 +112,9 @@ def exclusive(devices: Sequence[torch.device]):
     cuda = {d for d in devices if d.type == "cuda"}
     cards = [_card(d) for d in sorted(cuda, key=lambda d: d.index)]
     with contextlib.ExitStack() as stack:
-        for card in cards:
-            stack.enter_context(card.lock)
+        with spans.span("timing.wait"):
+            for card in cards:
+                stack.enter_context(card.lock)
         for card in cards:
             card.stream.wait_stream(torch.cuda.current_stream(card.stream.device))
             stack.enter_context(torch.cuda.stream(card.stream))
@@ -124,6 +147,7 @@ def _timed_on_cards(fn: Callable[[], Any], devices: Sequence[torch.device],
             if not idle or spin >= MAX_SPIN_MS:
                 return (out, max(s.elapsed_time(e) for s, e in zip(starts, ends)),
                         host_ms)
+            _count("reruns")
             spin = max(2.0 * spin, spin_ms(host_ms))
 
 
@@ -143,6 +167,7 @@ def timed(fn: Callable[[], Any],
     best = host_best = float("inf")
     out = None
     for _ in range(max(1, reps)):
+        _count("brackets")
         if devices[0].type == "cuda":
             out, ms, host_ms = _timed_on_cards(fn, devices, enqueue_ms)
             enqueue_ms = host_ms

@@ -10,7 +10,8 @@ test_client.py) work against this server unchanged:
     GET  /api/health         {"status", "gpu_available"}
     GET  /api/filters        filter catalog with parameter ranges
     GET  /api/stats          request counters, kernel launches, phase times,
-                             decode tiers, the runtime's executables
+                             decode tiers, the runtime's executables, span
+                             totals (`spans`), timing brackets (`timing`)
     POST /api/process        one filter, one level (1, 2 or 4)
     POST /api/process-all    level_1 + level_2 comparison (+ optional profiling)
     POST /api/process-batch  many same-size images in one launch per kernel
@@ -35,6 +36,13 @@ sets `profiling_error` and leaves the request's result standing.
 
 Every request to a process endpoint adds its host-clock time in four
 phases (decode, run, encode, profile) to `/api/stats` under `phase_ms`.
+`timing` counts the runtime's timed brackets and the runs done again
+because the card idled inside one (runtime/timing.py).  With ``--spans``
+the span recorder (core/spans.py) is on, and `spans` gives each span's
+count, ms and self ms: a request's HTTP read, parse, dump and write, its
+phases, the codec's base64 and image steps, the runtime's call, bracket
+and lock waits and the executables' stage, build, capture, fetch and
+eviction; `{}` without it.
 
 Run it with ``python -m gpu_image_processing_tpu_torch.server.app --device
 cuda`` (the default), or ``--device cpu`` to ask for the CPU.
@@ -51,7 +59,7 @@ from typing import Any, Iterator
 
 import numpy as np
 
-from ..core import config
+from ..core import config, spans
 from ..core.params import FILTERS, ValidationError, filters_catalog
 from ..ops.cuda import LAUNCHES, build
 from ..profiling.profiler import (
@@ -60,6 +68,7 @@ from ..profiling.profiler import (
     profile_batch,
     profile_filter,
 )
+from ..runtime import timing
 from ..runtime.dispatch import FilterRuntime
 from ..utils import native_codec
 from ..utils.image import (
@@ -105,18 +114,21 @@ def warm_kernels(runtime: FilterRuntime) -> None:
 
 
 class _PhaseTimer:
-    """Host-clock milliseconds of one request's decode, run and encode."""
+    """Host-clock milliseconds of one request's phases: decode, run,
+    encode and profile.  Each phase is also the span `server.<phase>`
+    (core/spans.py), from the same two stamps."""
 
     def __init__(self) -> None:
         self.ms = dict.fromkeys(PHASES, 0.0)
 
     @contextlib.contextmanager
     def __call__(self, phase: str) -> Iterator[None]:
-        t0 = time.perf_counter()
+        stamps = spans.stamped(f"server.{phase}")
         try:
-            yield
+            with stamps:
+                yield
         finally:
-            self.ms[phase] += (time.perf_counter() - t0) * 1000.0
+            self.ms[phase] += stamps.ms
 
 
 def _validate_request(req: FilterRequest) -> None:
@@ -234,8 +246,9 @@ def create_app(runtime: FilterRuntime | None = None,
     @app.get("/api/stats")
     def server_stats(_req: Request):
         """Request counters, kernel launches per kernel, the runtime's
-        executables and the bytes they hold, and per-route host-clock
-        totals of each phase."""
+        executables and the bytes they hold, per-route host-clock totals
+        of each phase, the decode tiers, the span recorder's totals ({}
+        unless it is on) and the timing brackets and their reruns."""
         with lock:
             phase_ms = {k: dict(v) for k, v in stats["phase_ms"].items()}
             by_route = dict(stats["by_route"])
@@ -251,6 +264,8 @@ def create_app(runtime: FilterRuntime | None = None,
                             else None),
             "phase_ms": phase_ms,
             "decode_tiers": decode_tier_counts(),
+            "spans": spans.totals(),
+            "timing": timing.stats(),
         }
 
     @app.get("/")
@@ -286,8 +301,10 @@ def create_app(runtime: FilterRuntime | None = None,
                 },
                 "GET /api/stats": {
                     "description": "Request counters, kernel launches, "
-                                   "decode/run/encode/profile times, "
-                                   "decode tiers"
+                                   "executables, decode/run/encode/profile "
+                                   "times, decode tiers, span totals "
+                                   "(spans; the server's --spans), timing "
+                                   "brackets and reruns (timing)"
                 },
                 "POST /api/process": {
                     "description": "Filter one image at one level",
@@ -518,7 +535,12 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--port", type=int, default=config.BACKEND_PORT)
     parser.add_argument("--device", default="cuda",
                         help="device to serve from: cuda (default) or cpu")
+    parser.add_argument("--spans", action="store_true",
+                        help="record spans of the host work; /api/stats "
+                             "gives their totals under spans")
     args = parser.parse_args(argv)
+    if args.spans:
+        spans.enable()
 
     logging.basicConfig(level=logging.INFO)
     runtime, error = start_runtime(args.device)

@@ -9,6 +9,11 @@ visible behavior: JSON request/response bodies, permissive CORS
 
 Handlers are plain functions `(Request) -> (status, payload_dict)` and are
 directly unit-testable without sockets via `Router.dispatch`.
+
+Each request served over a socket is the span `http.request`, which opens
+the request's id (core/spans.py), with `http.read` (the body off the
+socket), `http.parse` (its JSON or multipart), `http.dump` (the reply's
+JSON) and `http.write` (its headers and body on the socket) inside.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import threading
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Optional
+
+from ..core import spans
 
 
 class HTTPError(Exception):
@@ -186,18 +193,20 @@ def make_handler_class(router: Router, in_flight: Optional[InFlightGauge] = None
             pass
 
         def _send(self, status: int, payload: Any) -> None:
-            body = json.dumps(payload).encode("utf-8")
-            self.send_response(status)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            if self.close_connection:
-                # Keep-alive ends after this response (worker draining, or
-                # the client asked) -- say so per HTTP/1.1.
-                self.send_header("Connection", "close")
-            for k, v in _CORS_HEADERS.items():
-                self.send_header(k, v)
-            self.end_headers()
-            self.wfile.write(body)
+            with spans.span("http.dump"):
+                body = json.dumps(payload).encode("utf-8")
+            with spans.span("http.write"):
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                if self.close_connection:
+                    # Keep-alive ends after this response (worker draining,
+                    # or the client asked) -- say so per HTTP/1.1.
+                    self.send_header("Connection", "close")
+                for k, v in _CORS_HEADERS.items():
+                    self.send_header(k, v)
+                self.end_headers()
+                self.wfile.write(body)
 
         def do_OPTIONS(self):  # CORS preflight
             self.send_response(204)
@@ -207,6 +216,10 @@ def make_handler_class(router: Router, in_flight: Optional[InFlightGauge] = None
             self.end_headers()
 
         def _handle(self, method: str) -> None:
+            with spans.request("http.request"):
+                self._serve(method)
+
+        def _serve(self, method: str) -> None:
             # Load shedding: when the device is wedged, requests pile up
             # one thread each behind the stall; past the cap, shed with an
             # immediate 503 (and close, so retries land fresh) instead of
@@ -292,13 +305,18 @@ def make_handler_class(router: Router, in_flight: Optional[InFlightGauge] = None
                                   f"limit {body_cap} bytes "
                                   "(GIP_TPU_MAX_BODY_MB)"})
                     return
-                body = self.rfile.read(length) if length else b""
+                body = b""
+                if length:
+                    with spans.span("http.read"):
+                        body = self.rfile.read(length)
                 ctype = self.headers.get("Content-Type", "")
                 try:
-                    if body and "application/json" in ctype:
-                        req.json = json.loads(body)
-                    elif body and "multipart/form-data" in ctype:
-                        req.files = parse_multipart(body, ctype)
+                    if body:
+                        with spans.span("http.parse"):
+                            if "application/json" in ctype:
+                                req.json = json.loads(body)
+                            elif "multipart/form-data" in ctype:
+                                req.files = parse_multipart(body, ctype)
                 except (json.JSONDecodeError, HTTPError) as exc:
                     detail = getattr(exc, "detail",
                                      f"Invalid request body: {exc}")

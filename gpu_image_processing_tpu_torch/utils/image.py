@@ -39,6 +39,11 @@ a tRNS chunk longer than the palette or before it, image data that
 inflates past the size its header declares or whose stream does not end.  Every PNG answer is
 `native_codec.png_encode(img, 1)`: `gip_png_encode`, the Sub filter and
 zlib level 1 with run-length matching.
+
+A base64 upload's decode is the spans `codec.b64decode` and `codec.decode`
+(whichever tier serves it), an answer's encode `codec.encode` and
+`codec.b64encode` (core/spans.py); the passthrough original's base64 is a
+`codec.b64encode` too.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from ..core import spans
 from . import native_codec
 
 
@@ -538,7 +544,8 @@ def _b64_bytes(base64_str: str) -> bytes:
     try:
         if "," in base64_str:
             base64_str = base64_str.split(",", 1)[1]
-        raw = base64.b64decode(base64_str)
+        with spans.span("codec.b64decode"):
+            raw = base64.b64decode(base64_str)
     except (binascii.Error, ValueError) as exc:
         raise _fail(str(exc)) from None
     if not raw:
@@ -560,11 +567,12 @@ def decode_base64_image_ex(base64_str: str) -> tuple[np.ndarray, str | None]:
     from this decode by the IDCT's rounding), else None."""
     try:
         raw = _b64_bytes(base64_str)
-        arr = native_codec.png_decode(raw)
-        if arr is not None:
-            tier, png = "native_png", _leading_ihdr(raw)
-        else:
-            arr, tier, png = _decode_raw(raw)
+        with spans.span("codec.decode"):
+            arr = native_codec.png_decode(raw)
+            if arr is not None:
+                tier, png = "native_png", _leading_ihdr(raw)
+            else:
+                arr, tier, png = _decode_raw(raw)
     except ImageCodecError:
         _count_decode("failed")
         raise
@@ -579,12 +587,15 @@ def decode_base64_image_ex(base64_str: str) -> tuple[np.ndarray, str | None]:
 
 
 def _data_url(mime: str, payload: bytes) -> str:
-    return f"data:{mime};base64," + base64.b64encode(payload).decode("ascii")
+    with spans.span("codec.b64encode"):
+        return f"data:{mime};base64," + base64.b64encode(payload).decode("ascii")
 
 
 def encode_image_to_base64(img_array: np.ndarray) -> str:
     """An HWC (or HW) uint8 array -> PNG data URL."""
-    return _data_url("image/png", encode_png(img_array))
+    with spans.span("codec.encode"):
+        png = encode_png(img_array)
+    return _data_url("image/png", png)
 
 
 def load_image_file(data: bytes) -> tuple[np.ndarray, int, int]:
