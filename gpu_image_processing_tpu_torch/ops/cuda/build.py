@@ -21,9 +21,11 @@ stand into one library, `DECODERS`: in a checkout at its root, in an
 installed package from the copies it carries (core/files.py).  It is
 built with the host C++ compiler (`CXX_FLAGS`, then `-lz`), not nvcc, so
 that it builds on any host with a C++ compiler and zlib's header and
-library, the card's or not; a host without them fails the build.  It lands
-in `BUILD_DIR` beside the kernels, keyed the same way, as does one
-executable: the HTTP load generator of the serving checks
+library, the card's or not; a host without them fails the build.  So is
+the port's own serving PNG encoder, `png_bands.cpp` beside this module
+(`PNG_BANDS`: the answer's rows deflated in bands on threads, with
+`-pthread`).  Both land in `BUILD_DIR` beside the kernels, keyed the same
+way, as does one executable: the HTTP load generator of the serving checks
 (`tools/silicon_ci.py`), `native/tools/loadgen.cpp` compiled where it
 stands (`LOADGEN`, `build_loadgen`), in a checkout only.
 
@@ -69,10 +71,13 @@ BUILD_DIR = _build_dir()
 #: from `CARRIED`: the JAX package's C++ codec tier in `native/src` (three
 #: sources and the header they include), compiled as it stands.
 DECODERS = "gip_decoders"
+#: The port's serving PNG encoder, host C++ beside the kernels
+#: (`png_bands.cpp`).
+PNG_BANDS = "png_bands"
 #: The libraries built by nvcc: the kernels.
 SOURCES = ("blur", "sobel")
 #: Every library the port builds.
-LIBRARIES = (*SOURCES, DECODERS)
+LIBRARIES = (*SOURCES, DECODERS, PNG_BANDS)
 #: The load generator, an executable, and its source in the repository.
 LOADGEN = "loadgen"
 LOADGEN_SOURCE = "native/tools/loadgen.cpp"
@@ -91,6 +96,8 @@ CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-Wl,--no-undefined")
 #: The libraries `DECODERS` links, after its sources: zlib, for the PNG
 #: tier of gip_codec.cpp (`GIP_HAVE_LIBDEFLATE` stays undefined).
 CXX_LIBS = ("-lz",)
+#: `PNG_BANDS` runs a thread a band.
+BANDS_FLAGS = (*CXX_FLAGS, "-pthread")
 #: The load generator: plain C++17 with POSIX threads.
 EXE_FLAGS = ("-std=c++17", "-O2", "-pthread")
 
@@ -151,6 +158,8 @@ def _inputs(name: str) -> tuple[tuple[str, ...], list[Path]]:
     """(flags, every file the library is built from) of library `name`."""
     if name == DECODERS:
         return (*CXX_FLAGS, *CXX_LIBS), _repo_sources(name)
+    if name == PNG_BANDS:
+        return (*BANDS_FLAGS, *CXX_LIBS), [SOURCE_DIR / f"{name}.cpp"]
     if name == LOADGEN:
         return EXE_FLAGS, _repo_sources(name)
     return NVCC_FLAGS, [SOURCE_DIR / f"{name}.cu",
@@ -171,6 +180,9 @@ def _command(name: str, target: str) -> list[str]:
         return [cxx_path(), *CXX_FLAGS, "-o", target,
                 *(str(p) for p in _repo_sources(name) if p.suffix == ".cpp"),
                 *CXX_LIBS]
+    if name == PNG_BANDS:
+        return [cxx_path(), *BANDS_FLAGS, "-o", target,
+                str(SOURCE_DIR / f"{name}.cpp"), *CXX_LIBS]
     if name == LOADGEN:
         return [cxx_path(), *EXE_FLAGS, "-o", target,
                 *map(str, _repo_sources(name))]
@@ -226,7 +238,7 @@ def build_loadgen() -> Path:
 
 
 def load_host(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
-    """Library `name` (`<name>.cu` or `DECODERS`), built
+    """Library `name` (`<name>.cu`, `DECODERS` or `PNG_BANDS`), built
     first if needed; raises with the compiler's stderr if the build fails.
 
     `signatures` maps each function to its ctypes argument types; every one

@@ -10,8 +10,10 @@ test_client.py) work against this server unchanged:
     GET  /api/health         {"status", "gpu_available"}
     GET  /api/filters        filter catalog with parameter ranges
     GET  /api/stats          request counters, kernel launches, phase times,
-                             decode tiers, the runtime's executables, span
-                             totals (`spans`), timing brackets (`timing`)
+                             decode tiers, the answers' banded encodes
+                             (`encode_bands`), the runtime's executables,
+                             span totals (`spans`), timing brackets
+                             (`timing`)
     POST /api/process        one filter, one level (1, 2 or 4)
     POST /api/process-all    level_1 + level_2 comparison (+ optional profiling)
     POST /api/process-batch  many same-size images in one launch per kernel
@@ -77,6 +79,7 @@ from ..utils.image import (
     decode_base64_image_ex,
     decode_png,
     decode_tier_counts,
+    encode_band_counts,
     encode_image_to_base64,
     encode_png,
     load_image_file,
@@ -101,11 +104,14 @@ def start_runtime(device: str) -> tuple[FilterRuntime | None, str | None]:
 def warm_kernels(runtime: FilterRuntime) -> None:
     """Build every library and launch every kernel once on a tiny image,
     so the first request does not pay a build.  The launches are eager:
-    no executable is built for a shape no request sends."""
+    no executable is built for a shape no request sends.  The banded PNG
+    encoder runs once at two bands, so that its library is loaded and its
+    threads have run before a large answer needs them."""
     if runtime.device.type == "cuda":
         build.build_all()
     img = np.zeros((8, 8, 3), np.uint8)
     decode_png(encode_png(img))
+    decode_png(native_codec.png_encode_bands(img, 2))
     native_codec.jpeg_decode(native_codec.jpeg_encode(img))
     for filter_name in FILTERS:
         for level in config.REQUEST_LEVELS:
@@ -247,8 +253,9 @@ def create_app(runtime: FilterRuntime | None = None,
     def server_stats(_req: Request):
         """Request counters, kernel launches per kernel, the runtime's
         executables and the bytes they hold, per-route host-clock totals
-        of each phase, the decode tiers, the span recorder's totals ({}
-        unless it is on) and the timing brackets and their reruns."""
+        of each phase, the decode tiers, the answers' encodes and their
+        bands, the span recorder's totals ({} unless it is on) and the
+        timing brackets and their reruns."""
         with lock:
             phase_ms = {k: dict(v) for k, v in stats["phase_ms"].items()}
             by_route = dict(stats["by_route"])
@@ -264,6 +271,7 @@ def create_app(runtime: FilterRuntime | None = None,
                             else None),
             "phase_ms": phase_ms,
             "decode_tiers": decode_tier_counts(),
+            "encode_bands": encode_band_counts(),
             "spans": spans.totals(),
             "timing": timing.stats(),
         }

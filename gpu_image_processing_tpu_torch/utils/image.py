@@ -36,9 +36,16 @@ files.  Only a file the checks accept and gip refuses is inflated here
 with Python's `zlib` and unfiltered by `unfilter_plain`, in numpy and
 Python, row by row (`_png_samples`): a palette of more than 256 entries,
 a tRNS chunk longer than the palette or before it, image data that
-inflates past the size its header declares or whose stream does not end.  Every PNG answer is
-`native_codec.png_encode(img, 1)`: `gip_png_encode`, the Sub filter and
-zlib level 1 with run-length matching.
+inflates past the size its header declares or whose stream does not end.
+
+Every PNG answer goes through `encode_png_banded`: the Sub filter and zlib
+level 1 with run-length matching, as `encode_png` (`native_codec.png_encode(
+img, 1)`, `gip_png_encode`) writes them, the rows deflated in bands on host
+threads where the answer is large enough (`band_count`: a band for every
+`BAND_BYTES` of rows, at most the usable cores), into one zlib stream
+(`native_codec.png_encode_bands`).  An answer of one band is `encode_png`'s
+bytes.  `encode_band_counts` counts the answers, those banded and their
+bands (`/api/stats` `encode_bands`).
 
 A base64 upload's decode is the spans `codec.b64decode` and `codec.decode`
 (whichever tier serves it), an answer's encode `codec.encode` and
@@ -50,6 +57,8 @@ from __future__ import annotations
 
 import base64
 import binascii
+import math
+import os
 import struct
 import threading
 import zlib
@@ -386,6 +395,94 @@ def encode_png(img: np.ndarray) -> bytes:
     return png
 
 
+# -- the banded encoder -------------------------------------------------------
+
+#: The rows' bytes (filter bytes included) that make one band of the banded
+#: encoder: under two bands' worth an answer is deflated on one thread.
+BAND_BYTES = 2 << 20
+_band_lock = threading.Lock()
+_band_counts = {"encodes": 0, "banded": 0, "bands": 0}
+
+
+def _cgroup_cpus() -> Optional[int]:
+    """The CPUs the process's cgroup may use, rounded up, from its CPU
+    quota (cgroup v2 `cpu.max`, v1 `cpu.cfs_quota_us` over
+    `cpu.cfs_period_us`), in the process's cgroup, else at the root of the
+    mount (a container's own); None where none is set or readable.  Read
+    only."""
+    try:
+        with open("/proc/self/cgroup") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return None
+    for line in lines:
+        _, controllers, path = line.split(":", 2)
+        if controllers and "cpu" not in controllers.split(","):
+            continue
+        for where in (path.rstrip("/"), ""):
+            try:
+                if controllers:
+                    base = f"/sys/fs/cgroup/cpu{where}/cpu.cfs_"
+                    with open(base + "quota_us") as f, \
+                            open(base + "period_us") as g:
+                        quota, period = f.read().strip(), g.read().strip()
+                else:
+                    with open(f"/sys/fs/cgroup{where}/cpu.max") as f:
+                        quota, period = f.read().split()[:2]
+                if quota not in ("max", "-1") and int(period) > 0:
+                    return max(1, math.ceil(int(quota) / int(period)))
+            except (OSError, ValueError):
+                continue
+    return None
+
+
+def usable_cores() -> int:
+    """The CPUs this process may run on (`os.sched_getaffinity`), capped by
+    its cgroup's CPU quota where one is set."""
+    cores = len(os.sched_getaffinity(0))
+    quota = _cgroup_cpus()
+    return min(cores, quota) if quota else cores
+
+
+def band_count(height: int, width: int, channels: int) -> int:
+    """The bands `encode_png_banded` cuts an image's rows into: one for
+    every `BAND_BYTES` of its `height * (width * channels + 1)` row bytes,
+    at most `usable_cores()`, at least 1."""
+    by_size = height * (width * channels + 1) // BAND_BYTES
+    return 1 if by_size < 2 else min(usable_cores(), by_size)
+
+
+def encode_png_banded(img: np.ndarray) -> bytes:
+    """(H, W), (H, W, C) uint8 with C in 1-4 -> PNG bytes: `encode_png`'s
+    pixels, filter and zlib settings, the rows deflated in `band_count`
+    bands on host threads (`native_codec.png_encode_bands`).  At one band,
+    and for two channels, `encode_png`'s bytes."""
+    shape = np.shape(img)
+    channels = shape[2] if len(shape) == 3 else 1
+    bands = (band_count(shape[0], shape[1], channels)
+             if len(shape) in (2, 3) and channels in (1, 3, 4) else 1)
+    if bands == 1:
+        png = encode_png(img)
+    else:
+        png = native_codec.png_encode_bands(img, bands)
+        if png is None:
+            raise ImageCodecError(f"Cannot encode an image of shape {shape}")
+    with _band_lock:
+        _band_counts["encodes"] += 1
+        if bands > 1:
+            _band_counts["banded"] += 1
+            _band_counts["bands"] += bands
+    return png
+
+
+def encode_band_counts() -> dict[str, int]:
+    """Since the process started: `encodes`, the answers `encode_png_banded`
+    wrote; `banded`, those of more than one band; `bands`, the bands of the
+    banded ones, summed."""
+    with _band_lock:
+        return dict(_band_counts)
+
+
 # -- the native decoders, by magic bytes --------------------------------------
 
 Decoder = Callable[[bytes], Optional[np.ndarray]]
@@ -594,7 +691,7 @@ def _data_url(mime: str, payload: bytes) -> str:
 def encode_image_to_base64(img_array: np.ndarray) -> str:
     """An HWC (or HW) uint8 array -> PNG data URL."""
     with spans.span("codec.encode"):
-        png = encode_png(img_array)
+        png = encode_png_banded(img_array)
     return _data_url("image/png", png)
 
 

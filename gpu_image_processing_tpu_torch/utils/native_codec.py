@@ -8,7 +8,10 @@ utils/native_codec.py).  They are the symbols of `native/src/gip_codec.cpp`
 `gip_formats.cpp`, compiled where they stand into one library by
 ops/cuda/build.py with the host C++ compiler at first use, linked against
 zlib (`-lz`; the build needs `<zlib.h>` and the library).  A failed build
-raises with the compiler's stderr.
+raises with the compiler's stderr.  `png_encode_bands` is the port's own:
+`gip_png_encode_bands` of ops/cuda/png_bands.cpp, a library of its own
+(`build.PNG_BANDS`), the same PNG as `png_encode` at level 1 deflated in
+row bands on threads.
 
 Each decoder returns an (H, W, C) uint8 array (float32 or uint16 for the
 wide ones), or None when the decoder rejects the bytes (malformed,
@@ -61,6 +64,7 @@ _SIGNATURES = {
     "gip_bmp_write": _WRITE,
     "gip_tga_write": _WRITE,
 }
+_BANDS_SIGNATURES = {"gip_png_encode_bands": _ENCODE}
 
 _libc = ctypes.CDLL(None)
 _free = _libc.free
@@ -282,5 +286,32 @@ def png_encode(img: np.ndarray, level: int = 1) -> Optional[bytes]:
     length = ctypes.c_size_t()
     if load().gip_png_encode(img.ctypes.data_as(ctypes.c_char_p), h, w, c,
                              level, ctypes.byref(buf), ctypes.byref(length)):
+        return None
+    return _take(buf, length.value)
+
+
+def png_encode_bands(img: np.ndarray, bands: int) -> Optional[bytes]:
+    """HWC uint8 (C in 1, 3, 4) -> PNG bytes through `gip_png_encode_bands`,
+    or None for an empty image, another channel count or fewer than one
+    band.
+
+    The pixels, filter (Sub), zlib level (1) and strategy (Z_RLE) of
+    `png_encode(img, 1)`; the rows cut into min(bands, H) bands, each
+    deflated on a thread of its own and ended by a full flush, in one zlib
+    stream whose Adler-32 and IDAT CRC are joined from the bands'.  The
+    bytes depend on the image and `bands` alone; the stream is within a
+    few bytes a band of `png_encode`'s, and at one band is its bytes.
+    """
+    img = _hwc(img)
+    if img.ndim != 3 or img.shape[2] not in (1, 3, 4) or img.size == 0 \
+            or bands < 1:
+        return None
+    h, w, c = img.shape
+    buf = ctypes.c_void_p()
+    length = ctypes.c_size_t()
+    lib = build.load_host(build.PNG_BANDS, _BANDS_SIGNATURES)
+    if lib.gip_png_encode_bands(
+            img.ctypes.data_as(ctypes.c_char_p), h, w, c, bands,
+            ctypes.byref(buf), ctypes.byref(length)):
         return None
     return _take(buf, length.value)
