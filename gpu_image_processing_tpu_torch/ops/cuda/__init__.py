@@ -2,12 +2,16 @@
 
 `LAUNCHES` counts, per kernel, the calls of its wrapper that launched the
 kernel (never a call served by the plain version), so a run can show which
-kernels its main path went through.  The wrappers count through
+kernels its main path went through.  `ROUTES` counts the blur launches again
+by the device function each ran, keyed "<wrapper>: <function>" (for example
+"box_rows: box_window_rows" or "gaussian_rows: gauss_window_rows<Weighted,
+0>", the radius at run time), as `blur.cu`'s `gip_blur_route` names it from
+the rules that pick the function.  The wrappers count through
 `count_launch`: a thread that captures a CUDA graph counts its own calls
 apart (`counted_apart`), since the capture launches nothing and each replay
-of the graph counts them; every other thread counts into `LAUNCHES`
-meanwhile.  Each wrapper's host work and its ctypes launch is the span
-`ops.launch` (core/spans.py).
+of the graph counts them again (`count_replay`); every other thread counts
+into `LAUNCHES` and `ROUTES` meanwhile.  Each wrapper's host work and its
+ctypes launch is the span `ops.launch` (core/spans.py).
 """
 
 import contextlib
@@ -16,21 +20,42 @@ from collections import Counter
 from typing import Iterator
 
 LAUNCHES: Counter = Counter()
+ROUTES: Counter = Counter()
 
 _APART = threading.local()
 
 
-def count_launch(name: str) -> None:
-    """One launch of `name`'s kernel by the calling thread's wrapper."""
-    counter = getattr(_APART, "counter", None)
-    (LAUNCHES if counter is None else counter)[name] += 1
+class Counted(Counter):
+    """Launches by kernel, and in `routes` the device functions they ran."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.routes: Counter = Counter()
+
+
+def count_launch(name: str, route: str | None = None) -> None:
+    """One launch of `name`'s kernel by the calling thread's wrapper, which
+    ran the device function `route` (blur launches)."""
+    counted = getattr(_APART, "counter", None)
+    launches, routes = ((LAUNCHES, ROUTES) if counted is None
+                        else (counted, counted.routes))
+    launches[name] += 1
+    if route is not None:
+        routes[f"{name}: {route}"] += 1
+
+
+def count_replay(counted: Counted) -> None:
+    """Count again the launches and routes `counted` holds: one replay of
+    the graph whose capture counted them."""
+    LAUNCHES.update(counted)
+    ROUTES.update(counted.routes)
 
 
 @contextlib.contextmanager
-def counted_apart() -> Iterator[Counter]:
-    """The calling thread's launches, meanwhile, in the Counter yielded
-    instead of `LAUNCHES`."""
-    counter: Counter = Counter()
+def counted_apart() -> Iterator[Counted]:
+    """The calling thread's launches, meanwhile, in the `Counted` yielded
+    instead of `LAUNCHES` and `ROUTES`."""
+    counter = Counted()
     _APART.counter = counter
     try:
         yield counter

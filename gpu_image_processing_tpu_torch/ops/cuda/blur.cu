@@ -159,6 +159,11 @@
 //   the products are far below the tensor cores' rate, and staging, the
 //   quantizing epilogues and the barriers between the three phases take
 //   its time.
+//
+// gip_blur_route names the device function that a launch of given kind,
+// radius and channels runs, from the rules that pick it (kernel_radius,
+// box_route and the launches' argument checks), so the wrappers can count
+// each launch by the function it ran (ops/cuda/__init__.py, ROUTES).
 
 #include <algorithm>
 #include <array>
@@ -514,10 +519,21 @@ constexpr bool specialised(int r) {
   return std::is_same_v<Mode, gip::Weighted> ? r <= 15 || r == 31 : r <= 2;
 }
 
+// The template radius of the kernel that runs radius r.
+template <typename Mode>
+constexpr int kernel_radius(int r) {
+  return specialised<Mode>(r) ? r : 0;
+}
+
 template <typename Mode, int... Rs>
 constexpr std::array<GaussLaunch, sizeof...(Rs)> gauss_table(
     std::integer_sequence<int, Rs...>) {
-  return {&launch_gauss_r<Mode, specialised<Mode>(Rs + 1) ? Rs + 1 : 0>...};
+  return {&launch_gauss_r<Mode, kernel_radius<Mode>(Rs + 1)>...};
+}
+
+constexpr bool gauss_takes(int radius, int channels) {
+  return radius >= 1 && radius <= kMaxTaps / 2 && channels >= 1 &&
+         channels <= kGaussMaxChannels;
 }
 
 // The launch of radius r is entry r - 1.  halo: 0, or r (halo rows given).
@@ -527,8 +543,7 @@ int launch_gauss(const uint8_t* src, uint8_t* dst, const float* weights,
                  int halo, void* stream) {
   static constexpr auto table =
       gauss_table<Mode>(std::make_integer_sequence<int, kMaxTaps / 2>());
-  if (radius < 1 || radius > kMaxTaps / 2 || channels < 1 ||
-      channels > kGaussMaxChannels || (halo != 0 && halo != radius)) {
+  if (!gauss_takes(radius, channels) || (halo != 0 && halo != radius)) {
     return cudaErrorInvalidValue;
   }
   GaussTaps taps = {};
@@ -573,6 +588,22 @@ constexpr int kBoxLanes = 2;                          // lanes a thread sums
 constexpr int kRun = 32;         // pixels of one horizontal running sum
 constexpr int kBoxMaxRadius = 64;
 constexpr int kBoxMaxChannels = kStripLanes / kRun;   // 16
+
+// Which device function a box of radius r runs: the window kernel's plain
+// sums, the running sums, or (past the ring) the two wide launches.
+enum class BoxRoute { kTaps, kWindow, kWide };
+
+constexpr BoxRoute box_route(int radius) {
+  return radius <= kBoxWindowMaxRadius ? BoxRoute::kTaps
+         : radius <= kBoxMaxRadius     ? BoxRoute::kWindow
+                                       : BoxRoute::kWide;
+}
+
+// The one-launch box (taps or running sums) takes these.
+constexpr bool box_window_takes(int radius, int channels) {
+  return radius >= 1 && box_route(radius) != BoxRoute::kWide &&
+         channels >= 1 && channels <= kBoxMaxChannels;
+}
 
 struct BoxGeometry {
   Strip strip;
@@ -696,11 +727,10 @@ box_window_rows(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
 int launch_box_window(const uint8_t* src, uint8_t* dst, float inv, int radius,
                       int batch, int height, int width, int channels, int halo,
                       void* stream) {
-  if (radius < 1 || radius > kBoxMaxRadius || channels < 1 ||
-      channels > kBoxMaxChannels || (halo != 0 && halo != radius)) {
+  if (!box_window_takes(radius, channels) || (halo != 0 && halo != radius)) {
     return cudaErrorInvalidValue;
   }
-  if (radius <= kBoxWindowMaxRadius) {
+  if (box_route(radius) == BoxRoute::kTaps) {
     return launch_box_taps(src, dst, inv, radius, batch, height, width,
                            channels, halo, static_cast<cudaStream_t>(stream));
   }
@@ -780,7 +810,7 @@ box_wide_v(const uint8_t* __restrict__ tmp, uint8_t* __restrict__ dst,
 int launch_box_wide(const uint8_t* src, uint8_t* tmp, uint8_t* dst, float inv,
                     int radius, int batch, int height, int width, int channels,
                     void* stream) {
-  if (radius <= kBoxMaxRadius) return cudaErrorInvalidValue;
+  if (box_route(radius) != BoxRoute::kWide) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long lanes = static_cast<long long>(width) * channels;
   const long long h_threads =
@@ -996,14 +1026,16 @@ band_mma_rows(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
   }
 }
 
+bool band_takes(int radius, int channels) {
+  return radius >= 1 && radius <= kBandMaxRadius && channels >= 1 &&
+         BandGeometry(radius, channels).bytes() <= kMaxSharedBytes;
+}
+
 int launch_band(const uint8_t* src, uint8_t* dst, const float* hi,
                 const float* lo, int radius, int batch, int height, int width,
                 int channels, void* stream) {
-  if (radius < 1 || radius > kBandMaxRadius || channels < 1) {
-    return cudaErrorInvalidValue;
-  }
+  if (!band_takes(radius, channels)) return cudaErrorInvalidValue;
   const BandGeometry g(radius, channels);
-  if (g.bytes() > kMaxSharedBytes) return cudaErrorInvalidValue;
   cudaError_t err = allow_shared<band_mma_rows>(g.bytes());
   if (err != cudaSuccess) return err;
   const dim3 grid((width * channels + kBandTileW - 1) / kBandTileW,
@@ -1089,4 +1121,33 @@ extern "C" int gip_box_wide_rows(const uint8_t* src, uint8_t* tmp, uint8_t* dst,
                                  int width, int channels, void* stream) {
   return launch_box_wide(src, tmp, dst, inv, radius, batch, height, width,
                          channels, stream);
+}
+
+// The device function that a blur launch of these arguments runs, as the
+// launch functions above pick it: (function << 8) | R, where R is the
+// window kernel's template radius (0: the radius at run time) and function
+// is 1 gauss_window_rows<Weighted, R>, 2 <Folded, R>, 3 <Box, R>,
+// 4 box_window_rows, 5 box_wide_h + box_wide_v, 6 band_mma_rows; -1 where
+// the launch refuses the arguments.  kind: 0 the weighted gaussian
+// (gip_gaussian_rows, _planar), 1 the folded one, 2 the box (gip_box_*),
+// 3 the band.  A planar launch is a launch at one channel.
+extern "C" int gip_blur_route(int kind, int radius, int channels) {
+  switch (kind) {
+    case 0:
+      return gauss_takes(radius, channels)
+                 ? (1 << 8) | kernel_radius<gip::Weighted>(radius) : -1;
+    case 1:
+      return gauss_takes(radius, channels)
+                 ? (2 << 8) | kernel_radius<gip::Folded>(radius) : -1;
+    case 2:
+      if (box_route(radius) == BoxRoute::kWide) {
+        return channels >= 1 ? 5 << 8 : -1;
+      }
+      if (!box_window_takes(radius, channels)) return -1;
+      return box_route(radius) == BoxRoute::kTaps ? (3 << 8) | radius : 4 << 8;
+    case 3:
+      return band_takes(radius, channels) ? 6 << 8 : -1;
+    default:
+      return -1;
+  }
 }

@@ -24,6 +24,10 @@
   whose first window is summed in closed form, so a radius wider than the
   image costs O(W) and O(H) loads a segment, not O(r).
 
+Each launch is counted by its wrapper's name (`LAUNCHES`) and by the device
+function it ran (`ROUTES`), which `route` asks of `blur.cu`
+(`gip_blur_route`), from the rules that pick the function.
+
 Each takes (H, W*C) uint8 rows or a (B, H, W*C) batch of them, which one
 launch filters image by image.  On a CPU tensor a wrapper returns the plain
 version; on a CUDA tensor it launches the kernel or raises.
@@ -51,6 +55,7 @@ _SIGNATURES = {
     "gip_gaussian_planar": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gip_gaussian_folded_planar": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gip_box_planar": [_P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _P],
+    "gip_blur_route": [_I, _I, _I],
 }
 
 #: The grid's z dimension, which carries the batch, holds at most this many.
@@ -117,6 +122,50 @@ def library(device: torch.device) -> ctypes.CDLL:
     return build.load("blur", device, _SIGNATURES)
 
 
+#: `gip_blur_route`'s kinds of launch.
+WEIGHTED, FOLDED, BOX, BAND = range(4)
+#: The device functions `gip_blur_route` answers with, by the code in its
+#: answer's high byte; the low byte is a window kernel's template radius
+#: (0: the radius at run time).
+_FUNCTIONS = {1: "gauss_window_rows<Weighted, {}>",
+              2: "gauss_window_rows<Folded, {}>",
+              3: "gauss_window_rows<Box, {}>", 4: "box_window_rows",
+              5: "box_wide_h + box_wide_v", 6: "band_mma_rows"}
+_ROUTES: dict[tuple[int, int, int], str] = {}
+#: Each launch function's `LAUNCHES` name and kind of launch.
+_COUNTED = {"gip_gaussian_rows": ("gaussian_rows", WEIGHTED),
+            "gip_gaussian_folded_rows": ("gaussian_folded_rows", FOLDED),
+            "gip_gaussian_band_rows": ("gaussian_band_rows", BAND),
+            "gip_box_window_rows": ("box_rows", BOX),
+            "gip_box_wide_rows": ("box_rows", BOX),
+            "gip_gaussian_planar": ("gaussian_planar", WEIGHTED),
+            "gip_gaussian_folded_planar": ("gaussian_folded_planar", FOLDED),
+            "gip_box_planar": ("box_planar", BOX)}
+
+
+def count(lib: ctypes.CDLL, fn_name: str, radius: int, channels: int) -> None:
+    """Count a launch of `fn_name` by its wrapper's name and by the device
+    function it ran (`count_launch`)."""
+    name, kind = _COUNTED[fn_name]
+    count_launch(name, route(lib, kind, radius, channels))
+
+
+def route(lib: ctypes.CDLL, kind: int, radius: int, channels: int) -> str:
+    """The device function that a launch of `kind` (`WEIGHTED`, `FOLDED`,
+    `BOX`, `BAND`) at `radius` and `channels` runs, as `blur.cu`'s launch
+    functions pick it (a planar launch is one at one channel); raises where
+    they refuse the arguments."""
+    key = (kind, radius, channels)
+    name = _ROUTES.get(key)
+    if name is None:
+        code = lib.gip_blur_route(kind, radius, channels)
+        if code < 0:
+            raise ValueError(f"no blur kernel of kind {kind} takes r = "
+                             f"{radius} at {channels} channels")
+        name = _ROUTES[key] = _FUNCTIONS[code >> 8].format(code & 0xFF)
+    return name
+
+
 def host_taps(table: torch.Tensor) -> ctypes.Array:
     """A (2r+1,) float32 table as the host array the gaussian kernels copy
     into their launch parameters (a table on the card is read back, which
@@ -130,7 +179,8 @@ def _launch(fn_name: str, rows: torch.Tensor, channels: int, radius: int,
     """Launch one of blur.cu's functions on `rows`: input, scratch of the
     image's size (if `scratch`), output, its weight tables (or the box's
     scale; first, `taps` as a host array, read once the library has
-    loaded), then radius, batch, height, width, channels."""
+    loaded), then radius, batch, height, width, channels; and count the
+    launch."""
     with spans.span("ops.launch"):
         batch, height, width = check_rows(rows, channels)
         if radius < 1:
@@ -147,6 +197,7 @@ def _launch(fn_name: str, rows: torch.Tensor, channels: int, radius: int,
                 *buffers, *tables_or_scale, radius, batch, height, width,
                 channels, build.stream_handle(rows.device))
         build.check(lib, code, fn_name)
+        count(lib, fn_name, radius, channels)
         return out
 
 
@@ -171,9 +222,8 @@ def gaussian_rows(rows: torch.Tensor, weights: torch.Tensor, radius: int,
     """
     if rows.device.type == "cpu":
         return gaussian_rows_plain(rows, weights, radius, channels)
-    out = _launch_gaussian("gip_gaussian_rows", rows, weights, radius, channels)
-    count_launch("gaussian_rows")
-    return out
+    return _launch_gaussian("gip_gaussian_rows", rows, weights, radius,
+                            channels)
 
 
 def gaussian_folded_rows(rows: torch.Tensor, weights: torch.Tensor,
@@ -182,10 +232,8 @@ def gaussian_folded_rows(rows: torch.Tensor, weights: torch.Tensor,
     `weights` as in `gaussian_rows`."""
     if rows.device.type == "cpu":
         return gaussian_folded_rows_plain(rows, weights, radius, channels)
-    out = _launch_gaussian("gip_gaussian_folded_rows", rows, weights, radius,
-                           channels)
-    count_launch("gaussian_folded_rows")
-    return out
+    return _launch_gaussian("gip_gaussian_folded_rows", rows, weights, radius,
+                            channels)
 
 
 def gaussian_band_rows(rows: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
@@ -204,10 +252,8 @@ def gaussian_band_rows(rows: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
         raise ValueError(f"the band kernel takes r <= {BAND_MAX_RADIUS} and "
                          f"at most {BAND_MAX_CHANNELS} channels; got r = "
                          f"{radius}, {channels} channels")
-    out = _launch("gip_gaussian_band_rows", rows, channels, radius,
-                  hi.data_ptr(), lo.data_ptr())
-    count_launch("gaussian_band_rows")
-    return out
+    return _launch("gip_gaussian_band_rows", rows, channels, radius,
+                   hi.data_ptr(), lo.data_ptr())
 
 
 def box_rows(rows: torch.Tensor, radius: int, channels: int) -> torch.Tensor:
@@ -220,9 +266,6 @@ def box_rows(rows: torch.Tensor, radius: int, channels: int) -> torch.Tensor:
                          f"channels on the card; got {channels}")
     inv = float(box_inv_taps_f32(radius))
     if radius <= BOX_WINDOW_MAX_RADIUS:
-        out = _launch("gip_box_window_rows", rows, channels, radius, inv)
-    else:
-        out = _launch("gip_box_wide_rows", rows, channels, radius, inv,
-                      scratch=True)
-    count_launch("box_rows")
-    return out
+        return _launch("gip_box_window_rows", rows, channels, radius, inv)
+    return _launch("gip_box_wide_rows", rows, channels, radius, inv,
+                   scratch=True)

@@ -26,7 +26,7 @@ from ...core import spans
 from ...core.config import MAX_KERNEL_TAPS
 from .. import interleaved
 from ..weights import box_inv_taps_f32
-from . import blur, build, count_launch
+from . import blur, build
 from .blur import MAX_BATCH, check_table
 
 #: Output rows of one launch: the window kernels' row bands are at least 32
@@ -85,9 +85,9 @@ def check_planes(planes: torch.Tensor, radius: int,
 
 def _launch(fn_name: str, planes: torch.Tensor, dims: tuple[int, int, int],
             radius: int, rows_prepadded: bool, table_or_scale) -> torch.Tensor:
-    """Launch one of blur.cu's planar functions; `table_or_scale` is the
-    gaussian's table (a tensor, copied into the launch) or the box's f32
-    scale."""
+    """Launch one of blur.cu's planar functions, and count the launch (a
+    launch at one channel); `table_or_scale` is the gaussian's table (a
+    tensor, copied into the launch) or the box's f32 scale."""
     with spans.span("ops.launch"):
         n, height, width = dims
         lib = blur.library(planes.device)
@@ -101,6 +101,7 @@ def _launch(fn_name: str, planes: torch.Tensor, dims: tuple[int, int, int],
                 height, width, int(rows_prepadded),
                 build.stream_handle(planes.device))
         build.check(lib, code, fn_name)
+        blur.count(lib, fn_name, radius, 1)
         return out
 
 
@@ -116,10 +117,8 @@ def gaussian_planar(planes: torch.Tensor, weights: torch.Tensor, radius: int,
     check_table(weights, planes, radius, "weights", on_host=True)
     if planes.device.type == "cpu":
         return gaussian_planar_plain(planes, weights, radius, rows_prepadded)
-    out = _launch("gip_gaussian_planar", planes, dims, radius, rows_prepadded,
-                  weights)
-    count_launch("gaussian_planar")
-    return out
+    return _launch("gip_gaussian_planar", planes, dims, radius,
+                   rows_prepadded, weights)
 
 
 def gaussian_folded_planar(planes: torch.Tensor, weights: torch.Tensor,
@@ -132,10 +131,8 @@ def gaussian_folded_planar(planes: torch.Tensor, weights: torch.Tensor,
     if planes.device.type == "cpu":
         return gaussian_folded_planar_plain(planes, weights, radius,
                                             rows_prepadded)
-    out = _launch("gip_gaussian_folded_planar", planes, dims, radius,
-                  rows_prepadded, weights)
-    count_launch("gaussian_folded_planar")
-    return out
+    return _launch("gip_gaussian_folded_planar", planes, dims, radius,
+                   rows_prepadded, weights)
 
 
 def box_planar(planes: torch.Tensor, radius: int,
@@ -145,7 +142,5 @@ def box_planar(planes: torch.Tensor, radius: int,
     dims = check_planes(planes, radius, rows_prepadded)
     if planes.device.type == "cpu":
         return box_planar_plain(planes, radius, rows_prepadded)
-    out = _launch("gip_box_planar", planes, dims, radius, rows_prepadded,
-                  float(box_inv_taps_f32(radius)))
-    count_launch("box_planar")
-    return out
+    return _launch("gip_box_planar", planes, dims, radius, rows_prepadded,
+                   float(box_inv_taps_f32(radius)))

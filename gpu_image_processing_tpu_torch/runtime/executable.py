@@ -30,7 +30,8 @@ on a device input buffer of the key's shape:
   requests replay one graph at once;
 * the capturing thread counts its wrappers' launches apart
   (`ops.cuda.counted_apart`): the capture launches nothing, and each
-  replay adds them to `ops.cuda.LAUNCHES`;
+  replay adds them to `ops.cuda.LAUNCHES` and their device functions to
+  `ops.cuda.ROUTES` (`count_replay`);
 * the cache keeps at most `config.EXECUTABLE_CACHE_SIZE` executables,
   least recently used first out: the port has no shape bucketing, so
   every upload size is a key of its own.
@@ -55,14 +56,14 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from collections import Counter, OrderedDict
+from collections import OrderedDict
 from typing import Callable, Iterator
 
 import numpy as np
 import torch
 
 from ..core import spans
-from ..ops.cuda import LAUNCHES, counted_apart
+from ..ops.cuda import Counted, count_replay, counted_apart
 from .timing import exclusive
 
 RowsFn = Callable[[torch.Tensor], torch.Tensor]
@@ -134,7 +135,7 @@ class FilterExecutable:
         #: Requests served.
         self.requests = 0
         #: The launches one replay makes, as the capture counted them.
-        self.launches: Counter = Counter()
+        self.launches: Counted = Counted()
         #: The host's time to enqueue one run, in ms: sizes the card's spin
         #: before a timed run (runtime/timing.py); the untimed first run
         #: sets it, and the untimed replay after the capture, and each
@@ -247,7 +248,7 @@ class FilterExecutable:
             self.launches = launches
             self._graph, self._out = graph, out
             graph.replay()
-            LAUNCHES.update(launches)
+            count_replay(launches)
             self.enqueue_ms = (time.perf_counter() - t1) * 1000.0
         if self._report is not None:
             self._report("capture", stamps.ms)
@@ -288,7 +289,7 @@ class FilterExecutable:
         if self._graph is None:
             return self._fn(self._rows)
         self._graph.replay()
-        LAUNCHES.update(self.launches)
+        count_replay(self.launches)
         return self._out
 
     def fetch(self, out: torch.Tensor) -> np.ndarray:

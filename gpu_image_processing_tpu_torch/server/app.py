@@ -63,7 +63,7 @@ import numpy as np
 
 from ..core import config, spans
 from ..core.params import FILTERS, ValidationError, filters_catalog
-from ..ops.cuda import LAUNCHES, build
+from ..ops.cuda import LAUNCHES, ROUTES, build
 from ..profiling.profiler import (
     check_profiler_available,
     get_common_metrics,
@@ -251,7 +251,8 @@ def create_app(runtime: FilterRuntime | None = None,
 
     @app.get("/api/stats")
     def server_stats(_req: Request):
-        """Request counters, kernel launches per kernel, the runtime's
+        """Request counters, kernel launches per kernel and per device
+        function (blurs: `kernel_routes`), the runtime's
         executables and the bytes they hold, per-route host-clock totals
         of each phase, the decode tiers, the answers' encodes and their
         bands, the span recorder's totals ({} unless it is on) and the
@@ -267,6 +268,7 @@ def create_app(runtime: FilterRuntime | None = None,
             "device": str(runtime.device) if available else None,
             "gpu_available": available,
             "kernel_launches": dict(LAUNCHES),
+            "kernel_routes": dict(ROUTES),
             "executables": (runtime.executables.stats() if available
                             else None),
             "phase_ms": phase_ms,
