@@ -11,7 +11,12 @@ the rules that pick the function.  The wrappers count through
 apart (`counted_apart`), since the capture launches nothing and each replay
 of the graph counts them again (`count_replay`); every other thread counts
 into `LAUNCHES` and `ROUTES` meanwhile.  Each wrapper's host work and its
-ctypes launch is the span `ops.launch` (core/spans.py).
+ctypes launch is the span `ops.launch` (core/spans.py).  The wrappers
+launch through plans (`plan.py`), bound once per launch function, radius,
+channels and card; `LAUNCH_PLANS` counts the plans `built`, the launches
+a plan already `held` served, and the tap arrays `taps_rebuilt` for a
+gaussian table that changed (never counted apart: a capture does that host
+work, a replay does not).
 """
 
 import contextlib
@@ -21,8 +26,17 @@ from typing import Iterator
 
 LAUNCHES: Counter = Counter()
 ROUTES: Counter = Counter()
+LAUNCH_PLANS: Counter = Counter()
 
-_APART = threading.local()
+
+
+class _Apart(threading.local):
+    """The calling thread's `Counted` while it captures, else None."""
+
+    counter: "Counted | None" = None
+
+
+_APART = _Apart()
 
 
 class Counted(Counter):
@@ -36,12 +50,20 @@ class Counted(Counter):
 def count_launch(name: str, route: str | None = None) -> None:
     """One launch of `name`'s kernel by the calling thread's wrapper, which
     ran the device function `route` (blur launches)."""
-    counted = getattr(_APART, "counter", None)
-    launches, routes = ((LAUNCHES, ROUTES) if counted is None
-                        else (counted, counted.routes))
-    launches[name] += 1
-    if route is not None:
-        routes[f"{name}: {route}"] += 1
+    count_keyed(name, None if route is None else f"{name}: {route}")
+
+
+def count_keyed(name: str, route_key: str | None) -> None:
+    """`count_launch` with the `ROUTES` key already formatted."""
+    counted = _APART.counter
+    if counted is None:
+        LAUNCHES[name] += 1
+        if route_key is not None:
+            ROUTES[route_key] += 1
+    else:
+        counted[name] += 1
+        if route_key is not None:
+            counted.routes[route_key] += 1
 
 
 def count_replay(counted: Counted) -> None:

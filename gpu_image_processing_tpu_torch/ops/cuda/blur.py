@@ -26,7 +26,8 @@
 
 Each launch is counted by its wrapper's name (`LAUNCHES`) and by the device
 function it ran (`ROUTES`), which `route` asks of `blur.cu`
-(`gip_blur_route`), from the rules that pick the function.
+(`gip_blur_route`), from the rules that pick the function, once per launch
+plan (`plan.py`, `plan_for`).
 
 Each takes (H, W*C) uint8 rows or a (B, H, W*C) batch of them, which one
 launch filters image by image.  On a CPU tensor a wrapper returns the plain
@@ -36,13 +37,14 @@ version; on a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ...core import spans
 from .. import interleaved
 from ..weights import box_inv_taps_f32
-from . import build, count_launch
+from . import build, plan
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -88,29 +90,30 @@ box_rows_plain = interleaved.box_rows
 def check_rows(rows: torch.Tensor, channels: int) -> tuple[int, int, int]:
     """(batch, height, width) of contiguous (H, W*C) or (B, H, W*C) uint8
     rows; raises otherwise."""
-    if (rows.dtype != torch.uint8 or rows.dim() not in (2, 3)
+    shape = rows.shape
+    if (rows.dtype != torch.uint8 or len(shape) not in (2, 3)
             or not rows.is_contiguous()):
         raise ValueError(
             f"expected contiguous (H, W*C) or (B, H, W*C) uint8 rows; got "
-            f"{rows.dtype} {tuple(rows.shape)}")
-    if channels < 1 or rows.shape[-1] % channels:
+            f"{rows.dtype} {tuple(shape)}")
+    lanes = shape[-1]
+    if channels < 1 or lanes % channels:
         raise ValueError(
-            f"row width {rows.shape[-1]} is not a multiple of {channels} "
-            f"channels")
-    batch = rows.shape[0] if rows.dim() == 3 else 1
+            f"row width {lanes} is not a multiple of {channels} channels")
+    batch = shape[0] if len(shape) == 3 else 1
     if not 1 <= batch <= MAX_BATCH:
         raise ValueError(f"batch of {batch} images; one launch takes 1 to "
                          f"{MAX_BATCH}")
-    return batch, rows.shape[-2], rows.shape[-1] // channels
+    return batch, shape[-2], lanes // channels
 
 
 def check_table(table: torch.Tensor, rows: torch.Tensor, radius: int,
                  name: str, on_host: bool = False) -> None:
     """Raise unless `table` is a contiguous (2r+1,) float32 tensor on
     `rows`' device (or on the host, if `on_host`)."""
-    device = table.device if on_host and table.device.type == "cpu" else rows.device
-    if (table.device != device or table.dtype != torch.float32
-            or tuple(table.shape) != (2 * radius + 1,)
+    if ((not (on_host and table.is_cpu) and table.device != rows.device)
+            or table.dtype != torch.float32
+            or table.shape != (2 * radius + 1,)
             or not table.is_contiguous()):
         raise ValueError(
             f"{name} must be a contiguous ({2 * radius + 1},) float32 tensor "
@@ -143,13 +146,6 @@ _COUNTED = {"gip_gaussian_rows": ("gaussian_rows", WEIGHTED),
             "gip_box_planar": ("box_planar", BOX)}
 
 
-def count(lib: ctypes.CDLL, fn_name: str, radius: int, channels: int) -> None:
-    """Count a launch of `fn_name` by its wrapper's name and by the device
-    function it ran (`count_launch`)."""
-    name, kind = _COUNTED[fn_name]
-    count_launch(name, route(lib, kind, radius, channels))
-
-
 def route(lib: ctypes.CDLL, kind: int, radius: int, channels: int) -> str:
     """The device function that a launch of `kind` (`WEIGHTED`, `FOLDED`,
     `BOX`, `BAND`) at `radius` and `channels` runs, as `blur.cu`'s launch
@@ -166,11 +162,21 @@ def route(lib: ctypes.CDLL, kind: int, radius: int, channels: int) -> str:
     return name
 
 
-def host_taps(table: torch.Tensor) -> ctypes.Array:
-    """A (2r+1,) float32 table as the host array the gaussian kernels copy
-    into their launch parameters (a table on the card is read back, which
-    waits for the card)."""
-    return (ctypes.c_float * table.numel())(*table.tolist())
+def _make_plan(fn_name: str, rows: torch.Tensor, radius: int,
+               channels: int) -> plan.Plan:
+    lib = library(rows.device)
+    name, kind = _COUNTED[fn_name]
+    return plan.Plan(lib, fn_name, name, route(lib, kind, radius, channels),
+                     rows.get_device())
+
+
+def plan_for(fn_name: str, rows: torch.Tensor, radius: int,
+             channels: int) -> plan.Plan:
+    """The plan of a launch of `fn_name` at `radius` and `channels` on
+    `rows`' card, counted by its wrapper's name and by the device function
+    it runs (a planar launch is one at one channel)."""
+    return plan.get((fn_name, radius, channels, rows.get_device()),
+                    _make_plan, fn_name, rows, radius, channels)
 
 
 def _launch(fn_name: str, rows: torch.Tensor, channels: int, radius: int,
@@ -178,26 +184,21 @@ def _launch(fn_name: str, rows: torch.Tensor, channels: int, radius: int,
             taps: torch.Tensor | None = None) -> torch.Tensor:
     """Launch one of blur.cu's functions on `rows`: input, scratch of the
     image's size (if `scratch`), output, its weight tables (or the box's
-    scale; first, `taps` as a host array, read once the library has
-    loaded), then radius, batch, height, width, channels; and count the
-    launch."""
+    scale; first, `taps` as a host array), then radius, batch, height,
+    width, channels; and count the launch."""
     with spans.span("ops.launch"):
         batch, height, width = check_rows(rows, channels)
         if radius < 1:
             raise ValueError(f"radius must be >= 1; got {radius}")
-        lib = library(rows.device)
+        p = plan_for(fn_name, rows, radius, channels)
         if taps is not None:
-            tables_or_scale = (host_taps(taps), *tables_or_scale)
+            tables_or_scale = (p.host_taps(taps), *tables_or_scale)
         out = torch.empty_like(rows)
         buffers = [rows.data_ptr(), out.data_ptr()]
         if scratch:
             buffers.insert(1, torch.empty_like(rows).data_ptr())
-        with torch.cuda.device(rows.device):
-            code = getattr(lib, fn_name)(
-                *buffers, *tables_or_scale, radius, batch, height, width,
-                channels, build.stream_handle(rows.device))
-        build.check(lib, code, fn_name)
-        count(lib, fn_name, radius, channels)
+        p.launch(*buffers, *tables_or_scale, radius, batch, height, width,
+                 channels)
         return out
 
 
@@ -220,7 +221,7 @@ def gaussian_rows(rows: torch.Tensor, weights: torch.Tensor, radius: int,
     table on the card is read back first, which waits for the card, so a
     caller that launches often passes it on the host.
     """
-    if rows.device.type == "cpu":
+    if rows.is_cpu:
         return gaussian_rows_plain(rows, weights, radius, channels)
     return _launch_gaussian("gip_gaussian_rows", rows, weights, radius,
                             channels)
@@ -230,7 +231,7 @@ def gaussian_folded_rows(rows: torch.Tensor, weights: torch.Tensor,
                          radius: int, channels: int) -> torch.Tensor:
     """Separable gaussian blur with symmetric tap pairs (level 4, r < 3);
     `weights` as in `gaussian_rows`."""
-    if rows.device.type == "cpu":
+    if rows.is_cpu:
         return gaussian_folded_rows_plain(rows, weights, radius, channels)
     return _launch_gaussian("gip_gaussian_folded_rows", rows, weights, radius,
                             channels)
@@ -244,7 +245,7 @@ def gaussian_band_rows(rows: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
     `hi`, `lo` are the f32 tables of `ops.weights.bf16_split`, on the same
     device as `rows`.
     """
-    if rows.device.type == "cpu":
+    if rows.is_cpu:
         return gaussian_band_rows_plain(rows, hi, lo, radius, channels)
     check_table(hi, rows, radius, "hi")
     check_table(lo, rows, radius, "lo")
@@ -256,15 +257,21 @@ def gaussian_band_rows(rows: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
                    hi.data_ptr(), lo.data_ptr())
 
 
+@functools.lru_cache(maxsize=256)
+def box_scale(radius: int) -> float:
+    """The box's f32 reciprocal 1/(2r+1), as the float its launch takes."""
+    return float(box_inv_taps_f32(radius))
+
+
 def box_rows(rows: torch.Tensor, radius: int, channels: int) -> torch.Tensor:
     """Separable box blur, any radius >= 1, exact at levels 2 and 4; on the
     card, at most `BOX_MAX_CHANNELS` channels."""
-    if rows.device.type == "cpu":
+    if rows.is_cpu:
         return box_rows_plain(rows, radius, channels)
     if channels > BOX_MAX_CHANNELS:
         raise ValueError(f"box_rows takes at most {BOX_MAX_CHANNELS} "
                          f"channels on the card; got {channels}")
-    inv = float(box_inv_taps_f32(radius))
+    inv = box_scale(radius)
     if radius <= BOX_WINDOW_MAX_RADIUS:
         return _launch("gip_box_window_rows", rows, channels, radius, inv)
     return _launch("gip_box_wide_rows", rows, channels, radius, inv,

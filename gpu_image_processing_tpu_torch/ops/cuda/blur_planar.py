@@ -25,8 +25,7 @@ import torch
 from ...core import spans
 from ...core.config import MAX_KERNEL_TAPS
 from .. import interleaved
-from ..weights import box_inv_taps_f32
-from . import blur, build
+from . import blur
 from .blur import MAX_BATCH, check_table
 
 #: Output rows of one launch: the window kernels' row bands are at least 32
@@ -90,18 +89,13 @@ def _launch(fn_name: str, planes: torch.Tensor, dims: tuple[int, int, int],
     tensor, copied into the launch) or the box's f32 scale."""
     with spans.span("ops.launch"):
         n, height, width = dims
-        lib = blur.library(planes.device)
+        p = blur.plan_for(fn_name, planes, radius, 1)
         if isinstance(table_or_scale, torch.Tensor):
-            table_or_scale = blur.host_taps(table_or_scale)
+            table_or_scale = p.host_taps(table_or_scale)
         out = torch.empty((n, height, width), dtype=torch.uint8,
                           device=planes.device)
-        with torch.cuda.device(planes.device):
-            code = getattr(lib, fn_name)(
-                planes.data_ptr(), out.data_ptr(), table_or_scale, radius, n,
-                height, width, int(rows_prepadded),
-                build.stream_handle(planes.device))
-        build.check(lib, code, fn_name)
-        blur.count(lib, fn_name, radius, 1)
+        p.launch(planes.data_ptr(), out.data_ptr(), table_or_scale, radius, n,
+                 height, width, int(rows_prepadded))
         return out
 
 
@@ -115,7 +109,7 @@ def gaussian_planar(planes: torch.Tensor, weights: torch.Tensor, radius: int,
     """
     dims = check_planes(planes, radius, rows_prepadded)
     check_table(weights, planes, radius, "weights", on_host=True)
-    if planes.device.type == "cpu":
+    if planes.is_cpu:
         return gaussian_planar_plain(planes, weights, radius, rows_prepadded)
     return _launch("gip_gaussian_planar", planes, dims, radius,
                    rows_prepadded, weights)
@@ -128,7 +122,7 @@ def gaussian_folded_planar(planes: torch.Tensor, weights: torch.Tensor,
     (level 4, r < 3); `weights` as in `gaussian_planar`."""
     dims = check_planes(planes, radius, rows_prepadded)
     check_table(weights, planes, radius, "weights", on_host=True)
-    if planes.device.type == "cpu":
+    if planes.is_cpu:
         return gaussian_folded_planar_plain(planes, weights, radius,
                                             rows_prepadded)
     return _launch("gip_gaussian_folded_planar", planes, dims, radius,
@@ -140,7 +134,7 @@ def box_planar(planes: torch.Tensor, radius: int,
     """Separable box blur of each plane (int32 window sums, exact at levels
     2 and 4)."""
     dims = check_planes(planes, radius, rows_prepadded)
-    if planes.device.type == "cpu":
+    if planes.is_cpu:
         return box_planar_plain(planes, radius, rows_prepadded)
     return _launch("gip_box_planar", planes, dims, radius, rows_prepadded,
-                   float(box_inv_taps_f32(radius)))
+                   blur.box_scale(radius))

@@ -14,6 +14,8 @@ cache directory (`$XDG_CACHE_HOME`, by default `~/.cache`).
 The launch functions take `tensor.data_ptr()`, sizes and PyTorch's current
 stream as plain integers, launch on that stream without synchronising, and
 return `cudaGetLastError()`; `check` turns a non-zero code into an error.
+The wrappers bind each launch function once per radius, channels and card
+(`plan.py`).
 The codec's library (utils/native_codec.py) is host code: the JAX
 package's C++ codec tier, `native/src/gip_codec.cpp` (PNG on zlib, the
 file writers), `gip_jpeg.cpp` and `gip_formats.cpp`, compiled where they
@@ -253,6 +255,9 @@ def load_host(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        if name in SOURCES:
+            lib.gip_error_string.argtypes = [ctypes.c_int]
+            lib.gip_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
         return lib
 
@@ -262,13 +267,11 @@ def load(name: str, device: torch.device,
     """The kernel library built from `<name>.cu`, built first if needed.
 
     `signatures` maps each launch function to its ctypes argument types;
-    every one returns a CUDA error code (see `check`).
+    every one returns a CUDA error code (see `check`).  The wrappers call
+    this once per launch plan (`plan.py`), not once per launch.
     """
     require_hopper(device)
-    lib = load_host(name, signatures)
-    lib.gip_error_string.argtypes = [ctypes.c_int]
-    lib.gip_error_string.restype = ctypes.c_char_p
-    return lib
+    return load_host(name, signatures)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
@@ -276,8 +279,3 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.gip_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
-
-
-def stream_handle(device: torch.device) -> int:
-    """PyTorch's current stream on `device`, as the integer the C side takes."""
-    return torch.cuda.current_stream(device).cuda_stream

@@ -9,6 +9,7 @@
 #pragma once
 
 #include <algorithm>
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -164,19 +165,65 @@ cudaError_t allow_shared(int bytes) {
 // fill the SMs' block slots once (a block's time grows with its rows, a
 // partial last wave idles most SMs), each a multiple of `multiple` rows and
 // at least `least`.  The result of a kernel does not depend on it.
+//
+// The SM count and the blocks an SM holds are fixed for a kernel, a card,
+// its threads and its shared memory, so they are asked of the runtime on
+// the first launch of each (device, threads, bytes) and kept, key and
+// answer in one atomic word of a small table that is only ever filled (a
+// slot is claimed by compare-and-swap, so threads that launch at once keep
+// consistent entries); a launch whose key finds no slot asks again.
 template <auto kernel>
 cudaError_t band_rows_for(int block_threads, int bytes, long long columns,
                           int height, int multiple, int least, int* band_rows) {
-  int device = 0, sms = 0, per_sm = 0;
+  constexpr int kSlots = 64;
+  // key (device + 1, threads, bytes) << 24 | sms << 12 | per_sm; 0: empty.
+  static std::atomic<unsigned long long> held[kSlots];
+  int device = 0;
   cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        block_threads, bytes);
-  }
   if (err != cudaSuccess) return err;
+  const unsigned long long key =
+      (static_cast<unsigned long long>(device + 1) << 29 |
+       static_cast<unsigned long long>(block_threads) << 18 |
+       static_cast<unsigned long long>(bytes)) << 24;
+  const bool cacheable = device < 255 && block_threads < (1 << 11) &&
+                         bytes >= 0 && bytes < (1 << 18);
+  int sms = 0, per_sm = 0;
+  int slot = -1;
+  if (cacheable) {
+    const int start = static_cast<int>((key >> 24) * 0x9E3779B97F4A7C15ull >> 58);
+    for (int i = 0; i < kSlots; ++i) {
+      const int at = (start + i) % kSlots;
+      const unsigned long long entry = held[at].load(std::memory_order_acquire);
+      if (entry == 0) {
+        slot = at;
+        break;
+      }
+      if ((entry & ~0xFFFFFFull) == key) {
+        sms = static_cast<int>(entry >> 12 & 0xFFF);
+        per_sm = static_cast<int>(entry & 0xFFF);
+        break;
+      }
+    }
+  }
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          block_threads, bytes);
+    }
+    if (err != cudaSuccess) return err;
+    if (slot >= 0 && sms > 0 && sms < (1 << 12) && per_sm >= 0 &&
+        per_sm < (1 << 12)) {
+      unsigned long long empty = 0;
+      // Another thread may have claimed the slot meanwhile: then this
+      // answer is simply not kept.
+      held[slot].compare_exchange_strong(
+          empty,
+          key | static_cast<unsigned long long>(sms) << 12 |
+              static_cast<unsigned long long>(per_sm),
+          std::memory_order_acq_rel);
+    }
+  }
   const long long bands = std::max(1LL, sms * std::max(per_sm, 1) / columns);
   const int rows = static_cast<int>((height + bands - 1) / bands);
   *band_rows = std::max((rows + multiple - 1) / multiple * multiple, least);

@@ -22,7 +22,7 @@ import torch
 from ...core import spans
 from ...core.config import VALID_CHANNELS
 from .. import interleaved
-from . import build, count_launch
+from . import build, plan
 from .blur import check_rows
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -56,6 +56,25 @@ def library(device: torch.device) -> ctypes.CDLL:
     return build.load("sobel", device, _SIGNATURES)
 
 
+#: Each launch function's `LAUNCHES` name.
+_COUNTED = {"gip_sobel_rows": "sobel_rows",
+            "gip_sobel_f32_rows": "sobel_f32_rows",
+            "gip_sobel_planar": "sobel_planar",
+            "gip_sobel_f32_planar": "sobel_f32_planar"}
+
+
+def _make_plan(fn_name: str, rows: torch.Tensor) -> plan.Plan:
+    return plan.Plan(library(rows.device), fn_name, _COUNTED[fn_name], None,
+                     rows.get_device())
+
+
+def plan_for(fn_name: str, rows: torch.Tensor, channels: int) -> plan.Plan:
+    """The plan of a launch of `fn_name` at `channels` on `rows`' card
+    (`plan.py`), counted by its wrapper's name."""
+    return plan.get((fn_name, 0, channels, rows.get_device()), _make_plan,
+                    fn_name, rows)
+
+
 def _launch(fn_name: str, rows: torch.Tensor, width: int,
             channels: int) -> torch.Tensor:
     with spans.span("ops.launch"):
@@ -64,31 +83,24 @@ def _launch(fn_name: str, rows: torch.Tensor, width: int,
             raise ValueError(
                 f"expected {width} pixels of C in {VALID_CHANNELS}; got "
                 f"{got_width} of C={channels}")
-        lib = library(rows.device)
+        p = plan_for(fn_name, rows, channels)
         out = torch.empty_like(rows)
-        with torch.cuda.device(rows.device):
-            code = getattr(lib, fn_name)(
-                rows.data_ptr(), out.data_ptr(), batch, height, width,
-                channels, build.stream_handle(rows.device))
-        build.check(lib, code, fn_name)
+        p.launch(rows.data_ptr(), out.data_ptr(), batch, height, width,
+                 channels)
         return out
 
 
 def sobel_rows(rows: torch.Tensor, width: int, channels: int) -> torch.Tensor:
     """Level-2 Sobel edge map (quantized grey), written to every channel,
     with a zeroed 1-pixel border on each image."""
-    if rows.device.type == "cpu":
+    if rows.is_cpu:
         return sobel_rows_plain(rows, width, channels)
-    out = _launch("gip_sobel_rows", rows, width, channels)
-    count_launch("sobel_rows")
-    return out
+    return _launch("gip_sobel_rows", rows, width, channels)
 
 
 def sobel_f32_rows(rows: torch.Tensor, width: int,
                    channels: int) -> torch.Tensor:
     """Sobel edge map with the grey value kept in f32 (level 4)."""
-    if rows.device.type == "cpu":
+    if rows.is_cpu:
         return sobel_f32_rows_plain(rows, width, channels)
-    out = _launch("gip_sobel_f32_rows", rows, width, channels)
-    count_launch("sobel_f32_rows")
-    return out
+    return _launch("gip_sobel_f32_rows", rows, width, channels)

@@ -20,7 +20,7 @@ from ...core import spans
 from ...core.config import VALID_CHANNELS
 from .. import interleaved
 from ..rounding import quantize_u8_f32
-from . import build, count_launch, sobel
+from . import sobel
 from .blur import MAX_BATCH
 from .sobel import MAX_HEIGHT
 
@@ -66,15 +66,11 @@ def _launch(fn_name: str, planes: torch.Tensor, rows_prepadded: bool,
             zero_rows: bool) -> torch.Tensor:
     with spans.span("ops.launch"):
         batch, channels, height, width = check_planes(planes, rows_prepadded)
-        lib = sobel.library(planes.device)
+        p = sobel.plan_for(fn_name, planes, channels)
         out = torch.empty((*planes.shape[:-2], height, width),
                           dtype=torch.uint8, device=planes.device)
-        with torch.cuda.device(planes.device):
-            code = getattr(lib, fn_name)(
-                planes.data_ptr(), out.data_ptr(), batch, channels, height,
-                width, int(rows_prepadded), int(zero_rows),
-                build.stream_handle(planes.device))
-        build.check(lib, code, fn_name)
+        p.launch(planes.data_ptr(), out.data_ptr(), batch, channels, height,
+                 width, int(rows_prepadded), int(zero_rows))
         return out
 
 
@@ -82,20 +78,16 @@ def sobel_planar(planes: torch.Tensor, rows_prepadded: bool = False,
                  zero_rows: bool = True) -> torch.Tensor:
     """Level-2 Sobel edge map (quantized grey) of (C, H, W) or (B, C, H, W)
     planes, written to every plane, with a zeroed 1-pixel border."""
-    if planes.device.type == "cpu":
+    if planes.is_cpu:
         check_planes(planes, rows_prepadded)
         return sobel_planar_plain(planes, 2, rows_prepadded, zero_rows)
-    out = _launch("gip_sobel_planar", planes, rows_prepadded, zero_rows)
-    count_launch("sobel_planar")
-    return out
+    return _launch("gip_sobel_planar", planes, rows_prepadded, zero_rows)
 
 
 def sobel_f32_planar(planes: torch.Tensor, rows_prepadded: bool = False,
                      zero_rows: bool = True) -> torch.Tensor:
     """Sobel edge map of planes with the grey value kept in f32 (level 4)."""
-    if planes.device.type == "cpu":
+    if planes.is_cpu:
         check_planes(planes, rows_prepadded)
         return sobel_planar_plain(planes, 1, rows_prepadded, zero_rows)
-    out = _launch("gip_sobel_f32_planar", planes, rows_prepadded, zero_rows)
-    count_launch("sobel_f32_planar")
-    return out
+    return _launch("gip_sobel_f32_planar", planes, rows_prepadded, zero_rows)

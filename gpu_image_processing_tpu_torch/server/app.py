@@ -63,7 +63,7 @@ import numpy as np
 
 from ..core import config, spans
 from ..core.params import FILTERS, ValidationError, filters_catalog
-from ..ops.cuda import LAUNCHES, ROUTES, build
+from ..ops.cuda import LAUNCH_PLANS, LAUNCHES, ROUTES, build
 from ..profiling.profiler import (
     check_profiler_available,
     get_common_metrics,
@@ -252,11 +252,12 @@ def create_app(runtime: FilterRuntime | None = None,
     @app.get("/api/stats")
     def server_stats(_req: Request):
         """Request counters, kernel launches per kernel and per device
-        function (blurs: `kernel_routes`), the runtime's
-        executables and the bytes they hold, per-route host-clock totals
-        of each phase, the decode tiers, the answers' encodes and their
-        bands, the span recorder's totals ({} unless it is on) and the
-        timing brackets and their reruns."""
+        function (blurs: `kernel_routes`), the wrappers' launch plans
+        built and held and their tap arrays rebuilt (`launch_plans`), the
+        runtime's executables and the bytes they hold, per-route
+        host-clock totals of each phase, the decode tiers, the answers'
+        encodes and their bands, the span recorder's totals ({} unless it
+        is on) and the timing brackets and their reruns."""
         with lock:
             phase_ms = {k: dict(v) for k, v in stats["phase_ms"].items()}
             by_route = dict(stats["by_route"])
@@ -269,6 +270,7 @@ def create_app(runtime: FilterRuntime | None = None,
             "gpu_available": available,
             "kernel_launches": dict(LAUNCHES),
             "kernel_routes": dict(ROUTES),
+            "launch_plans": dict(LAUNCH_PLANS),
             "executables": (runtime.executables.stats() if available
                             else None),
             "phase_ms": phase_ms,
