@@ -579,7 +579,10 @@ class EagerRuntime(FilterRuntime):
     def _eager_call(self, filter_name: str, lvl: int, sigma: float,
                     radius: int, host: np.ndarray, shape: tuple[int, ...],
                     path: str) -> _Call:
-        fn = self._rows_fn(filter_name, lvl, sigma, radius, shape[-2], shape[-1])
+        fn = planar_api.rows_function(
+            filter_name, lvl, radius, shape[-1], shape[-2],
+            gaussian_kernel_f32(radius, sigma) if filter_name == "gaussian"
+            else None, self.device)
         rows = torch.from_numpy(host).to(self.device)
         batch = shape[0] if len(shape) == 4 else 1
         return _Call((filter_name, lvl, batch, *shape[-3:], radius),
@@ -608,8 +611,10 @@ def eager_answer(rt: FilterRuntime, f: str, lv: int, imgs: np.ndarray,
     eagerly on the card, holding it, as the runtime ran it before its
     executables."""
     radius = radius or {"gaussian": MAIN_GAUSS_RADIUS, "box": MAIN_BOX_RADIUS}.get(f, 3)
-    fn = rt._rows_fn(f, normalize_level(f, lv), sigma, radius, imgs.shape[-2],
-                     imgs.shape[-1])
+    fn = planar_api.rows_function(
+        f, normalize_level(f, lv), radius, imgs.shape[-1], imgs.shape[-2],
+        gaussian_kernel_f32(radius, sigma) if f == "gaussian" else None,
+        rt.device)
     rows = torch.from_numpy(np.ascontiguousarray(imgs).reshape(
         *imgs.shape[:-2], -1)).to(rt.device)
     with exclusive([rt.device]):

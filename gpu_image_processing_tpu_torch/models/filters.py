@@ -5,10 +5,10 @@ an `nn.Module` with two faces:
 
 * `forward(image, ...)` (the JAX `apply`): a function of an (H, W, C)
   uint8 tensor on its own device, composable in the caller's code and in
-  `nn.Sequential`.  Level 1 is the plain reference (`ops/ref.py`); levels
-  2 and 4 are the level-2 function of the registry (`ops/fused.py`), as in
-  the JAX package, whose `apply` never takes an "_adv" key: the level-4
-  functions are reached through the registry only.
+  `nn.Sequential`: one call of the planar tier (`ops/cuda/api.py`, whose
+  route picks the function), at level 1 for level 1 and at level 2 for
+  levels 2 and 4, as in the JAX package, whose `apply` never takes an
+  "_adv" key: the level-4 functions are reached through the registry only.
 * `run(np_image)` (the JAX `__call__`): one call through the filter
   runtime, `(image, metrics dict)`, on `runtime=` or the API's module
   runtime, which targets the card unless the caller asked for the CPU.
@@ -31,17 +31,14 @@ from ..core.params import (
     validate_box_params,
     validate_gaussian_params,
 )
-from ..ops import fused, ref
-from ..ops.cuda.api import table
+from ..ops.cuda import api as cuda_api
 from ..ops.weights import gaussian_kernel_f32, weights_to_torch
 from ..runtime.dispatch import FilterRuntime
 
 
-def _level2(name: str):
-    """The level-2 implementation of `name` in the registry."""
-    impls: dict = {}
-    fused.register_all(impls.__setitem__)
-    return impls[name]
+def _served(filter_name: str, level: int) -> int:
+    """The level whose function `forward` runs: 1 at level 1, else 2."""
+    return 1 if normalize_level(filter_name, level) == 1 else 2
 
 
 def _refresh_host_weights(module: "GaussianBlur", _incompatible) -> None:
@@ -78,12 +75,11 @@ class GaussianBlur(nn.Module):
         it on the host or the image's device), or a numpy table such as the
         JAX model's `weights`, taken bit for bit."""
         with spans.span("models.forward"):
-            if normalize_level("gaussian", self.level) == 1:
-                w = (self.weights if weights is None
-                     else table(weights).to(image.device))
-                return ref.gaussian_blur(image, w, self.radius)
-            w = self.host_weights if weights is None else table(weights)
-            return _level2("gaussian")(image, w, self.radius)
+            level = _served("gaussian", self.level)
+            if weights is None:
+                weights = self.weights if level == 1 else self.host_weights
+            return cuda_api.filtered(image, "gaussian", level, self.radius,
+                                     weights)
 
     def run(self, image: np.ndarray, runtime: FilterRuntime | None = None
             ) -> tuple[np.ndarray, dict]:
@@ -106,9 +102,8 @@ class BoxBlur(nn.Module):
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:
         with spans.span("models.forward"):
-            lvl = normalize_level("box", self.level)
-            impl = ref.box_blur if lvl == 1 else _level2("box")
-            return impl(image, self.radius)
+            return cuda_api.filtered(image, "box", _served("box", self.level),
+                                     self.radius)
 
     def run(self, image: np.ndarray, runtime: FilterRuntime | None = None
             ) -> tuple[np.ndarray, dict]:
@@ -130,9 +125,7 @@ class SobelEdgeDetection(nn.Module):
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:
         with spans.span("models.forward"):
-            if normalize_level("sobel", self.level) == 1:
-                return ref.sobel(image, 1)
-            return _level2("sobel")(image)
+            return cuda_api.filtered(image, "sobel", _served("sobel", self.level))
 
     def run(self, image: np.ndarray, runtime: FilterRuntime | None = None
             ) -> tuple[np.ndarray, dict]:

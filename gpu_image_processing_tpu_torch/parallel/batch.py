@@ -12,32 +12,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..ops import ref
+from ..core.params import FILTERS
 from ..ops.cuda import api as cuda_api
 from .mesh import Mesh
 from .spatial import edge_pad
-
-
-def _per_block(filter_name: str, radius: int, level: int) -> Callable:
-    """fn(block, weights) of a (b, H, W, C) block on its device.  Level 1
-    runs `ops/ref.py`; other levels the planar tier's level-2 functions, one
-    launch of the rows kernel a block on its (b, H, W*C) view, as the JAX
-    package's XLA-fused level 2 computes them.  Sobel keeps its level's
-    grey rule, as the JAX batch filter's `ref.sobel(im, level)` does: level
-    2 quantizes it, levels 1 and 4 keep it in f32."""
-    if filter_name == "gaussian":
-        if level == 1:
-            return lambda blk, w: ref.gaussian_blur(blk, w.to(blk.device), radius)
-        impl = cuda_api.level2_impls()["gaussian"]
-        return lambda blk, w: impl(blk, w, radius)
-    if filter_name == "box":
-        impl = ref.box_blur if level == 1 else cuda_api.level2_impls()["box"]
-        return lambda blk, w: impl(blk, radius)
-    if filter_name == "sobel":
-        if level == 1:
-            return lambda blk, w: ref.sobel(blk, 1)
-        return lambda blk, w: cuda_api.edges(blk, 2 if level == 2 else 4)
-    raise ValueError(f"Unknown filter: {filter_name}")
 
 
 def make_batch_filter(mesh: Mesh, filter_name: str, radius: int = 3,
@@ -50,8 +28,16 @@ def make_batch_filter(mesh: Mesh, filter_name: str, radius: int = 3,
     pad images cannot change real outputs).  Gaussian also takes its
     (2r+1,) float32 table.  Returns the (B, H, W, C) uint8 tensor on the
     mesh's first device.
+
+    Each block is one call of the planar tier (`ops/cuda/api.py`, whose
+    route picks the function) on its device, at the level the JAX batch
+    filter computes: level 1, or its XLA-fused level 2 for gaussian and box
+    at levels 2 and 4; Sobel keeps its level's grey rule, as the JAX batch
+    filter's `ref.sobel(im, level)` does.
     """
-    per_block = _per_block(filter_name, radius, level)
+    if filter_name not in FILTERS:
+        raise ValueError(f"Unknown filter: {filter_name}")
+    served = level if filter_name == "sobel" else min(level, 2)
     devices = mesh.devices.ravel().tolist()
     n = len(devices)
 
@@ -62,7 +48,8 @@ def make_batch_filter(mesh: Mesh, filter_name: str, radius: int = 3,
         x = edge_pad(x, -b % n, 0)
         w = cuda_api.table(weights) if weights is not None else None
         per = x.shape[0] // n
-        outs = [per_block(x[i * per:(i + 1) * per].to(dev).contiguous(), w)
+        outs = [cuda_api.filtered(x[i * per:(i + 1) * per].to(dev), filter_name,
+                                  served, radius, w)
                 for i, dev in enumerate(devices)]
         return torch.cat([o.to(devices[0]) for o in outs])[:b]
 

@@ -13,8 +13,8 @@ not a hardware counter: rows that use one are tagged
   their rate (the bound beside every kernel time in `chip_smoke.py` and
   `tools/sol_report.py`).
 * `served_tensor_core_flops`: the bf16 products the tensor cores issue for
-  a request.  Only the level-4 gaussian from `GAUSS_MXU_MIN_RADIUS` up runs
-  on them (`gaussian_band_rows`, `blur.cu::band_mma_rows`); the model
+  a request.  Only the band runs on them (`ops/cuda/api.py::uses_band`,
+  `gaussian_band_rows`, `blur.cu::band_mma_rows`); the model
   follows that kernel's tiles.  Box and Sobel, which the TPU ran on its
   matrix unit, run on the CUDA cores here, so the model gives None for
   them (and for every other route).
@@ -24,7 +24,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from ..core.config import GAUSS_MXU_MIN_RADIUS
+from ..ops.cuda.api import uses_band
 
 BYTES_SOURCE = "modeled"
 
@@ -73,10 +73,8 @@ def served_tensor_core_flops(filter_name: str, level: int, height: int,
                              radius: Optional[int] = None,
                              batch: int = 1) -> Optional[int]:
     """Modeled tensor-core FLOPs of the kernel serving this request, or None
-    when it issues none: every route but the level-4 gaussian from
-    `GAUSS_MXU_MIN_RADIUS` (runtime/dispatch.py::_rows_fn)."""
-    if (filter_name != "gaussian" or level != 4 or radius is None
-            or radius < GAUSS_MXU_MIN_RADIUS):
+    when it issues none: every route but the band (`uses_band`)."""
+    if radius is None or not uses_band(filter_name, level, radius):
         return None
     return band_mma_flops(height, width, channels, radius, batch)
 

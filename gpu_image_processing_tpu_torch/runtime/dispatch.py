@@ -7,16 +7,11 @@ The replacement for the reference's host orchestrators
 Images cross to the device as (H, W*C) uint8 rows, the HWC bytes viewed 2-D,
 and a batch as (B, H, W*C).
 
-* Level 1 runs the plain torch ops of `ops/interleaved.py` on that device.
-* Levels 2 and 4 run the hand-written kernels of `ops/cuda/`.  On a CUDA
-  device they launch the kernel for every shape; a kernel that fails to
-  build or launch raises.  On the CPU their wrappers serve the plain torch
-  version.
-* Level 4 (ADVANCED, within 1 of level 2) routes as the JAX package does
-  (gpu_image_processing_tpu/runtime/dispatch.py:217-371): gaussian with
-  folded taps below `GAUSS_MXU_MIN_RADIUS` and with the bf16 hi + lo band
-  from it up; box on the exact level-2 kernel (every TPU route for it is
-  exact too); Sobel with the grey value kept in f32.
+* The function that serves a (filter, level, radius) is the one
+  `ops/cuda/api.py::rows_function` names, where the rule is stated: level 1
+  in plain torch ops on the device, levels 2 and 4 the hand-written kernels
+  of `ops/cuda/`, which on a CUDA device launch for every shape or raise,
+  and on the CPU serve their plain torch versions.
 * Two opt-in multi-device paths (`FilterRuntime.mesh_devices`): row-sharded
   single-image serving over `parallel/spatial.py`'s halo-row shards, and
   mesh-batch serving, one block of the batch a device.
@@ -48,7 +43,6 @@ import numpy as np
 import torch
 
 from ..core import config, spans
-from ..core.config import GAUSS_MXU_MIN_RADIUS
 from ..core.metrics import PerformanceMetrics, compute_metrics
 from ..core.params import (
     FILTERS,
@@ -58,9 +52,8 @@ from ..core.params import (
     validate_gaussian_params,
     validate_image_shape,
 )
-from ..ops import interleaved
-from ..ops.cuda import blur, sobel
-from ..ops.weights import bf16_split, gaussian_kernel_f32, weights_to_torch
+from ..ops.cuda import api as cuda_api
+from ..ops.weights import gaussian_kernel_f32
 from ..parallel.mesh import make_mesh
 from ..parallel.spatial import make_sharded_filter, spatial_h_target
 from .device import resolve
@@ -71,9 +64,6 @@ from .executable import (
     executable_cache_key,
 )
 from .timing import exclusive, timed
-
-Rows = torch.Tensor
-RowsFn = Callable[[Rows], Rows]
 
 
 def _check_filter(filter_name: str) -> None:
@@ -178,33 +168,6 @@ class FilterRuntime:
             return 0
         return n
 
-    def _rows_fn(self, filter_name: str, lvl: int, sigma: float, radius: int,
-                 width: int, channels: int,
-                 device: torch.device | None = None) -> RowsFn:
-        """The function of (..., H, W*C) rows on `device` (default: the
-        runtime's) that serves this request."""
-        device = self.device if device is None else device
-        if filter_name == "gaussian":
-            table = gaussian_kernel_f32(radius, float(sigma))
-            if lvl == 4 and radius >= GAUSS_MXU_MIN_RADIUS:
-                hi, lo = (weights_to_torch(t, device) for t in bf16_split(table))
-                return lambda rows: blur.gaussian_band_rows(
-                    rows, hi, lo, radius, channels)
-            # The level-2 and level-4 kernels take their taps by value, from
-            # the host; level 1 computes with them on the device.
-            weights = weights_to_torch(
-                table, device if lvl == 1 else torch.device("cpu"))
-            impl = {1: interleaved.gaussian_rows, 2: blur.gaussian_rows,
-                    4: blur.gaussian_folded_rows}[lvl]
-            return lambda rows: impl(rows, weights, radius, channels)
-        if filter_name == "box":
-            impl = interleaved.box_rows if lvl == 1 else blur.box_rows
-            return lambda rows: impl(rows, radius, channels)
-        if lvl == 1:
-            return lambda rows: interleaved.sobel_rows(rows, 1, width, channels)
-        impl = sobel.sobel_rows if lvl == 2 else sobel.sobel_f32_rows
-        return lambda rows: impl(rows, width, channels)
-
     def _validate(self, filter_name: str, level: int, sigma: float,
                   radius: int) -> int:
         """Validate the filter's parameters; the normalized level."""
@@ -261,8 +224,9 @@ class FilterRuntime:
         runtime's device."""
         width, channels = shape[-2:]
         exe = self.executables.get(key, lambda: FilterExecutable(
-            key, lambda: self._rows_fn(filter_name, lvl, sigma, radius, width,
-                                       channels),
+            key, lambda: cuda_api.rows_function(
+                filter_name, lvl, radius, channels, width,
+                _taps(filter_name, sigma, radius), self.device),
             rows.shape, self.device, self.executables.record))
         return _Call(key, exe.run, (self.device,),
                      lambda out: exe.fetch(out).reshape(shape), path, lvl,
@@ -336,8 +300,10 @@ class FilterRuntime:
             host = np.concatenate([host, np.repeat(host[-1:], -batch % n, 0)])
         mesh = make_mesh(n, dp=n, sp=1, devices=list(self.mesh_devices))
         devices = mesh.devices.ravel().tolist()
-        fns = {d: self._rows_fn(filter_name, lvl, sigma, radius, width,
-                                channels, d) for d in mesh.distinct_devices()}
+        taps = _taps(filter_name, sigma, radius)
+        fns = {d: cuda_api.rows_function(filter_name, lvl, radius, channels,
+                                         width, taps, d)
+               for d in mesh.distinct_devices()}
         per = host.shape[0] // n
         blocks = [torch.from_numpy(host[i * per:(i + 1) * per]).to(d)
                   for i, d in enumerate(devices)]
@@ -374,7 +340,9 @@ class FilterRuntime:
         rows = torch.from_numpy(
             np.ascontiguousarray(image, np.uint8).reshape(height, -1))
         with exclusive((self.device,)):
-            fn = self._rows_fn(filter_name, lvl, sigma, radius, width, channels)
+            fn = cuda_api.rows_function(filter_name, lvl, radius, channels,
+                                        width, _taps(filter_name, sigma, radius),
+                                        self.device)
             out = fn(rows.to(self.device)).cpu()
         return out.numpy().reshape(height, width, channels)
 

@@ -24,6 +24,7 @@ from gpu_image_processing_tpu_torch.core import config
 from gpu_image_processing_tpu_torch.core.params import normalize_level
 from gpu_image_processing_tpu_torch.ops.cuda import (
     LAUNCHES,
+    api,
     count_launch,
     counted_apart,
 )
@@ -320,7 +321,9 @@ def test_graph_replay_equals_an_eager_launch(rng, name, radius, level):
     dev = _card()
     img = make_image(rng, 61, 97, 3)
     rt = FilterRuntime(dev)
-    fn = rt._rows_fn(name, normalize_level(name, level), 1.5, radius, 97, 3)
+    taps = gaussian_kernel_f32(radius, 1.5) if name == "gaussian" else None
+    fn = api.rows_function(name, normalize_level(name, level), radius, 3, 97,
+                           taps, dev)
     rows = torch.from_numpy(img.reshape(61, -1)).to(dev)
     before = LAUNCHES.copy()
     eager = fn(rows).cpu().numpy().reshape(img.shape)

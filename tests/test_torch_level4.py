@@ -19,12 +19,10 @@ from gpu_image_processing_tpu.ops.pallas.blur_mxu import gaussian_mxu_rows
 from gpu_image_processing_tpu.ops.pallas.sobel import sobel_pallas_rows
 from gpu_image_processing_tpu.ops.pallas.sobel_mxu import sobel_mxu_rows
 from gpu_image_processing_tpu.ops.weights import gaussian_kernel_f32
+from gpu_image_processing_tpu_torch.core.config import GAUSS_MXU_MIN_RADIUS
 from gpu_image_processing_tpu_torch.ops.cuda import LAUNCHES, blur, sobel
 from gpu_image_processing_tpu_torch.ops.weights import bf16_split, weights_to_torch
-from gpu_image_processing_tpu_torch.runtime.dispatch import (
-    GAUSS_MXU_MIN_RADIUS,
-    FilterRuntime,
-)
+from gpu_image_processing_tpu_torch.runtime.dispatch import FilterRuntime
 
 from .conftest import make_image
 from .sobel_tolerance import assert_sobel_close

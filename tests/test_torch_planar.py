@@ -494,13 +494,18 @@ def test_tier_runs_the_rows_kernels_without_permutes(rng, monkeypatch):
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("folded", [False, True])
-def test_gaussian_planar_batch_matches_batch_kernel(rng, shape, folded):
+@pytest.mark.parametrize("folded,radius,sigma", [
+    (False, 2, 1.5), (True, 2, 1.5), (False, 15, 5.0), (True, 3, 2.0),
+    (True, 15, 5.0)], ids=["False", "True", "False-r15", "True-r3", "True-r15"])
+def test_gaussian_planar_batch_matches_batch_kernel(rng, shape, folded, radius,
+                                                    sigma):
+    # `folded` is the tap order at every radius, as the JAX kernel's: the
+    # band is the level-4 route's choice, not this function's.
     imgs = np.stack([make_image(rng, *shape) for _ in range(2)])
-    w, wt = _table(2, 1.5)
-    got = api.gaussian_planar_batch(_t(imgs), wt, 2, folded=folded).numpy()
+    w, wt = _table(radius, sigma)
+    got = api.gaussian_planar_batch(_t(imgs), wt, radius, folded=folded).numpy()
     want = _jit(lambda x, ww: gaussian_pallas_batch(
-        x, ww, 2, interpret=True, folded=folded), imgs, w)
+        x, ww, radius, interpret=True, folded=folded), imgs, w)
     np.testing.assert_array_equal(got, want)
 
 

@@ -21,6 +21,7 @@ from PIL import Image
 from gpu_image_processing_tpu.server.app import create_app as jax_create_app
 from gpu_image_processing_tpu.server.http import Request as JaxRequest
 from gpu_image_processing_tpu_torch.ops.cuda import LAUNCHES
+from gpu_image_processing_tpu_torch.ops.cuda import api as cuda_api
 from gpu_image_processing_tpu_torch.runtime.dispatch import FilterRuntime
 from gpu_image_processing_tpu_torch.server.app import (
     create_app,
@@ -409,9 +410,9 @@ def test_without_a_card_the_process_endpoints_answer_503():
 def test_warm_kernels_runs_every_level_on_the_cpu(monkeypatch):
     rt = FilterRuntime("cpu")
     ran = []
-    rows_fn = rt._rows_fn
-    monkeypatch.setattr(rt, "_rows_fn", lambda f, lvl, *a: (
-        ran.append((f, lvl)), rows_fn(f, lvl, *a))[1])
+    route = cuda_api.rows_function
+    monkeypatch.setattr(cuda_api, "rows_function", lambda f, lvl, *a: (
+        ran.append((f, lvl)), route(f, lvl, *a))[1])
     warm_kernels(rt)
     assert set(ran) == {
         (f, lv) for f in ("gaussian", "box", "sobel") for lv in (1, 2, 4)}
