@@ -264,7 +264,7 @@ KERNELS = {
         "source": _BLUR,
         "replaces": _TPU + "blur.py:212",
         "also_replaces": [_TPU + "blur.py:985"],
-        "profiler_names": ["gauss_window_rows<gip::Weighted"],
+        "profiler_names": ["gauss_window_rows<gip::Weighted", "gauss_pair_rows"],
     },
     "box_rows": {
         "source": _BLUR,
@@ -309,7 +309,7 @@ KERNELS = {
         "source": _BLUR,
         "replaces": _TPU + "blur.py:664",
         "also_replaces": [_TPU + "blur.py:212", _TPU + "blur.py:1055"],
-        "profiler_names": ["gauss_window_rows<gip::Weighted"],
+        "profiler_names": ["gauss_window_rows<gip::Weighted", "gauss_pair_rows"],
     },
     "gaussian_folded_planar": {
         "source": _BLUR,
@@ -2401,6 +2401,7 @@ def main() -> int:
         planar_api.sobel_planar_batch(image_t[None], 1, zero_rows=False)
         rt.run("box", scene, level=2, radius=15)    # box_rows's running sums
         rt.run("box", scene, level=2, radius=100)   # box_rows's two-launch route
+        rt.run("gaussian", scene, level=2, sigma=20.0, radius=15)   # gauss_pair_rows
     device_kernels = [e.key for e in prof.key_averages()
                       if getattr(e, "device_time_total", 0) > 0
                       and PRIMER_KERNEL not in e.key]

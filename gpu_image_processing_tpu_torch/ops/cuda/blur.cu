@@ -30,7 +30,9 @@
 //     once, not per chunk.  The intermediate never reaches device memory.
 //   * The radius is a template parameter, so the tap loops unroll fully, at
 //     the weighted radii 1 to 15 (the API's) and 31 and the folded radii 1
-//     and 2 (level 4 folds only below 3); the other radii share one kernel
+//     and 2 (level 4 folds only below 3; from kPairMinRadius the weighted
+//     taps of the port's tables go to gauss_pair_rows, below, and only
+//     other tables come here); the other radii share one kernel
 //     per mode that takes the radius at run time and sums each output from
 //     its taps.  Twenty kernels, not 62: every radius specialised made
 //     blur.cu's build several times longer.  The taps are a kernel
@@ -59,6 +61,52 @@
 //   32 rounding adds; loads, stores and addresses); the vertical pass has
 //   224 FMUL and 300 FADD for its 32 outputs, with two shared loads and two
 //   conversions a row for 16 outputs.  The old kernel took about ten a tap.
+//
+// gauss_pair_rows (gaussian_rows and gaussian_planar from kPairMinRadius,
+//   8, to r = 15 and at r = 31) replaces the same TPU kernel,
+//   ops/pallas/blur.py::_blur_kernel, weighted, where the window kernel is
+//   bound by issue rather than bytes.  Held to -fmad=false, each of the
+//   4(2r + 1) = 124 operations an output at r = 15 issues alone, so on
+//   2146x3239x3 the floor is 124 x 20.85 M outputs at 33.45e12 thread
+//   instructions a second (132 SMs x 128 lanes x 1.98 GHz): 77.3 us, where
+//   the benchmark's yardstick (portbench/reference/work.py) counts the same
+//   operations at the FFMA rate, 38.59 us.  gauss_window_rows<Weighted, 15>
+//   took 0.198 ms, 2.56x the floor: about 75 instructions an output a pass
+//   for 61 taps, 23% of its horizontal pass on halo rows, 6.7% dead lanes.
+//   The design, same arithmetic (f32, each product and sum rounded in tap
+//   order, floor(x + 0.5) after each pass, clamp to edge; maxdiff 0):
+//   * Register runs of 32 outputs in each pass, 32 pixels of one channel
+//     across and 32 rows of one lane down: each staged value is loaded and
+//     converted once for 32 outputs, 1.94 times an output a pass at r = 15
+//     (2.9 in the window kernel).
+//   * One product a symmetric tap pair: an input's product with tap m <= r
+//     is its product with tap 2r - m too, since the table holds w[m] and
+//     w[2r - m] equal to the bit (pair_takes checks it on the host, where
+//     the taps are copied; any other table takes the window kernel), so it
+//     is formed once and added to both outputs: 23.5 multiplies an output
+//     a pass, 31 before.  Each output still adds its taps in tap order.
+//   * Only live lanes: a thread a lane of its strip, a strip 32-pixel runs
+//     wide, chosen a launch among 1 to kPairMaxLanes / (32 C) runs
+//     (pair_launch_for); a warp past the strip's last pixel runs no taps.
+//   * One ring of horizontal rows in chunks of 32 rows (2r + 32 and the
+//     chunk being filled), bands sized so that the grid fills the SMs: at
+//     r = 15 strips of 128 pixels (C = 3) and bands of 224 rows, halo rows
+//     11.8% of the horizontal pass (23% before), 260 blocks in 264 slots.
+//   And: u8 to f32 by I2FP, one instruction; floor(x + 0.5) without a
+//   clamp, since pair_takes admits only tables whose sums stay in
+//   [0, 255.5); C = 3, the photo's, a constant of its own instantiation;
+//   384-thread blocks, two an SM at 80 registers (at 512 threads and 64
+//   registers the runs spilled).
+//   SASS at r = 15 (tools/sass_counts.py, sm_90a): the horizontal pass of a
+//   32-pixel run, gauss_pair_rows<15, 3>, is 1962 instructions for 32 x 31
+//   taps, 2.0 a tap and 61 an output (752 FMUL, 1024 FADD), 80 registers,
+//   no spills; gauss_window_rows<Weighted, 15>'s 16-pixel run is 1342 for
+//   16 x 31, 2.7 a tap and 84 an output (496 FMUL, 558 FADD), 80
+//   registers, no spills.  On the H100 (PERF.md, K1) it takes 0.141 ms at
+//   r = 15 (the window kernel 0.193), issuing at about 55% of the card's
+//   instruction rate, as the window kernel did; separate FP32 multiplies
+//   and adds alone ran at 94% of that rate, so the FP32 pipe is not what
+//   holds it back.
 //
 // gaussian_planar, gaussian_folded_planar and box_planar (blur_planar.py)
 //   replace blur.py::_blur_kernel as `_separable_blur_planar` (blur.py:664,
@@ -167,6 +215,7 @@
 
 #include <algorithm>
 #include <array>
+#include <cstring>
 #include <type_traits>
 #include <utility>
 
@@ -536,7 +585,330 @@ constexpr bool gauss_takes(int radius, int channels) {
          channels <= kGaussMaxChannels;
 }
 
+// Box at radii up to kBoxWindowMaxRadius takes the window kernel in box
+// mode (Box), whose outputs are independent sums with no running chain.  In
+// development probes on the H100 at 2146x3239x3 it beat box_window_rows's
+// running sums to r = 7 and lost from r = 8 (rows: 0.0539 against 0.0910 ms
+// at r = 1, 0.0924 against 0.0995 at r = 7, 0.1013 against 0.0993 at r = 8;
+// planes alike).  Entry r - 1 is radius r.
+constexpr int kBoxWindowMaxRadius = 7;
+
+// The weighted gaussian takes gauss_pair_rows from kPairMinRadius to 15 and
+// at 31, with a table that pair_takes admits (every table the port builds)
+// and at most kPairMaxChannels channels; below it gauss_window_rows<Weighted,
+// r>.  On the H100 at 2146x3239x3 rows the pair kernel was the faster from
+// r = 8 up (card ms, window against pair: r = 8 0.1245 / 0.1099, r = 9
+// 0.1275 / 0.0982, r = 12 0.1558 / 0.1182, r = 15 0.1928 / 0.1414, r = 31
+// 0.4348 / 0.2925).  Below 8 the window kernel is bound by bytes and
+// latency more than by issue; the pair kernel has no instantiation there
+// and was not timed.
+constexpr int kPairMinRadius = 8;
+
+// -- gauss_pair_rows: the weighted gaussian at wide radii ---------------------
+
+constexpr int kPairRun = 32;        // outputs of a register run, each pass
+// Lanes of a strip, a thread a lane: two blocks of 384 threads an SM leave
+// 80 registers a thread, which the runs take without spilling (at 64, two
+// blocks of 512, they spilled and ran slower).
+constexpr int kPairMaxLanes = 384;
+constexpr int kPairMaxChannels = kPairMaxLanes / kPairRun;   // 12
+// Bytes from one ring row to the next: a constant, so each ring load of the
+// vertical pass takes its row as an immediate offset; 384 + 16 puts
+// neighbouring rows on other banks.
+constexpr int kPairRingStride = kPairMaxLanes + 16;
+// A block's cost beside its rows and lanes (staging, barriers, the pipeline
+// filling), in lanes: fitted to card times of strips of 1 to 16 runs.
+constexpr int kPairBlockLanes = 128;
+
+// A strip of `runs` runs of kPairRun pixels, one thread a lane of it, and
+// its ring: the vertical run reads 2r + kPairRun rows, which with the chunk
+// being computed take `chunks` chunks of kPairRun rows.  (Chunks of two
+// vertical runs, half the barriers, made the compiler spill and ran 2.7x
+// slower.)
+struct PairGeometry {
+  int strip_px;    // runs * kPairRun
+  int lanes;       // strip_px * C: the block's threads
+  int in_len;      // bytes of a staged row: (strip_px + 2r) * C
+  int in_stride;   // in_len + 15 rounded to an odd multiple of 16
+  int chunks;      // ring chunks
+  __host__ __device__ PairGeometry(int radius, int channels, int runs)
+      : strip_px(runs * kPairRun),
+        lanes(strip_px * channels),
+        in_len((strip_px + 2 * radius) * channels),
+        in_stride((in_len + 15 + 15) / 16 * 16 | 16),
+        chunks((2 * radius + kPairRun - 1) / kPairRun + 1) {}
+  __host__ __device__ int bytes() const {
+    return kPairRun * in_stride + chunks * kPairRun * kPairRingStride;
+  }
+};
+
+// The f32 value of a u8 by I2FP: exact, and one instruction where
+// u8_to_f32 takes two; on the H100 the pair kernel ran faster with it.
+__device__ __forceinline__ float u8_float(unsigned v) { return __uint2float_rn(v); }
+
+// floor(x + 0.5) in the low byte of the result, for 0 <= x < 255.5, which
+// the tables pair_takes admits keep every sum to: t = x + 0.5 rounded to
+// nearest, then t + 1.5 * 2^23 rounded down has the bits of 1.5 * 2^23 (a
+// zero low byte) plus floor(t), as in quantize_u8_int, and a byte store
+// keeps the low byte.  No clamp: two instructions fewer an output than
+// quantize_u8_int.
+__device__ __forceinline__ unsigned quantize_u8_low(float x) {
+  return __float_as_uint(__fadd_rd(__fadd_rn(x, 0.5f), 12582912.0f));
+}
+
+// Input J of a run: its product with tap m (m <= R), formed once, is tap m
+// of output J - m and tap 2R - m of output J - 2R + m, whose weights are
+// equal to the bit; each output adds its taps in tap order, since the
+// inputs come in order and an output takes one tap of each.
+template <int R, int J>
+__device__ __forceinline__ void add_pair_input(float (&acc)[kPairRun], float v,
+                                               const GaussTaps& taps) {
+#pragma unroll
+  for (int m = 0; m <= R; ++m) {
+    const int k = J - m;
+    const int k2 = J - 2 * R + m;
+    const bool first = k >= 0 && k < kPairRun;
+    const bool second = m < R && k2 >= 0 && k2 < kPairRun;
+    if (first || second) {
+      const float p = __fmul_rn(v, taps.w[m]);
+      if (first) acc[k] = m == 0 ? p : __fadd_rn(acc[k], p);
+      if (second) acc[k2] = __fadd_rn(acc[k2], p);
+    }
+  }
+}
+
+// Horizontal: the kPairRun + 2R staged values x[0], x[step], ... of a run.
+template <int R, int J>
+__device__ __forceinline__ void pair_run(float (&acc)[kPairRun],
+                                         const uint8_t* x, int step,
+                                         const GaussTaps& taps) {
+  if constexpr (J < kPairRun + 2 * R) {
+    add_pair_input<R, J>(acc, u8_float(x[J * step]), taps);
+    pair_run<R, J + 1>(acc, x, step, taps);
+  }
+}
+
+// Vertical: window row J of a lane, in ring chunk (J + kSkip) / kPairRun
+// at the chunk's row (J + kSkip) % kPairRun; every offset is a constant.
+template <int R, int kSkip, int kChunks, int J>
+__device__ __forceinline__ void pair_column(float (&acc)[kPairRun],
+                                            const uint8_t* const (&chunk)[kChunks],
+                                            const GaussTaps& taps) {
+  if constexpr (J < kPairRun + 2 * R) {
+    constexpr int q = J + kSkip;
+    add_pair_input<R, J>(
+        acc, u8_float(chunk[q / kPairRun][q % kPairRun * kPairRingStride]), taps);
+    pair_column<R, kSkip, kChunks, J + 1>(acc, chunk, taps);
+  }
+}
+
+// blockIdx.z is the image of the batch; blockDim.x is the strip's lanes
+// (runs runs of kPairRun pixels at `channels`); band_rows is a multiple of
+// kPairRun.  halo as in gauss_window_rows.  kC: the channels as a constant
+// (3, the photo's), so each staged load and ring store of the horizontal
+// run takes its offset as an immediate (2.7% faster at r = 15 on the H100),
+// or 0 for `channels` at run time.
+//
+// The horizontal rows go to one ring of kChunks chunks of kPairRun rows.
+// Chunk c holds virtual rows v_first + kPairRun c .. + kPairRun - 1, in
+// ring slot c % kChunks; the vertical run n (output rows y0 + kPairRun n
+// ..) reads the 2R + kPairRun rows that end with chunk n + kChunks - 1, so
+// once the chunks before it are in, each chunk computed lets one vertical
+// run go.  Chunk 0's first kSkip rows, and rows past the last one an
+// output reads, are not computed.
+template <int R, int kC>
+__global__ void __launch_bounds__(kPairMaxLanes, 2)
+gauss_pair_rows(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
+                const __grid_constant__ GaussTaps taps, int height, int width,
+                int channels, int halo, int runs, int band_rows) {
+  constexpr int kChunks = (2 * R + kPairRun - 1) / kPairRun + 1;
+  constexpr int kSkip = (kChunks - 1) * kPairRun - 2 * R;
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ int shift[kPairRun];
+  const int C = kC > 0 ? kC : channels;
+  const PairGeometry g(R, C, runs);
+  uint8_t* in = smem;                                 // kPairRun staged rows
+  uint8_t* ring = smem + kPairRun * g.in_stride;
+  const int lanes = width * C;
+  const int px0 = blockIdx.x * g.strip_px;
+  const int y0 = blockIdx.y * band_rows;
+  const int y_end = min(y0 + band_rows, height);
+  const int valid_px = min(g.strip_px, width - px0);
+  src += (static_cast<size_t>(blockIdx.z) * (height + 2 * halo) + halo) * lanes;
+  dst += static_cast<size_t>(blockIdx.z) * height * lanes + px0 * C;
+  const int g0 = (px0 - R) * C;   // row lane of staged byte 0
+  const int v_first = y0 + R - (kChunks - 1) * kPairRun;
+  const int v_last = y_end - 1 + R;   // the last virtual row an output reads
+  const int last_chunk = (y_end - y0 + kPairRun - 1) / kPairRun + kChunks - 2;
+  // This thread's horizontal run: row hk of a chunk, channel hch, pixels
+  // hp0 .. hp0 + kPairRun - 1 of the strip; the strip's live runs only, so
+  // threads past them (hk >= kPairRun) have none.
+  const int pairs = C * ((valid_px + kPairRun - 1) / kPairRun);
+  const int hk = threadIdx.x / pairs;
+  const int hpair = threadIdx.x - hk * pairs;
+  const int hch = hpair % C;
+  const int hp0 = hpair / C * kPairRun;
+  const bool live_lane = static_cast<int>(threadIdx.x) < valid_px * C;
+
+  const auto stage = [&](int c) {
+    const int v0 = v_first + c * kPairRun;
+#pragma unroll
+    for (int k = 0; k < kPairRun; k += gip::kStageRows) {
+      gip::stage_rows<0>(src, in + k * g.in_stride, shift + k, g.in_stride, g0,
+                         g.in_len, lanes, C, v0 + k, gip::kStageRows, -halo,
+                         height + 2 * halo);
+    }
+  };
+
+  stage(0);
+  for (int c = 0;; ++c) {
+    gip::wait_async_copies();
+    __syncthreads();   // chunk c is staged; the run that read its slot is done
+    const int v = v_first + c * kPairRun + hk;
+    if (hk < kPairRun && v >= y0 - R && v <= v_last) {
+      const uint8_t* x = in + hk * g.in_stride + shift[hk] + hp0 * C + hch;
+      uint8_t* h = ring + ((c % kChunks) * kPairRun + hk) * kPairRingStride +
+                   hp0 * C + hch;
+      float acc[kPairRun];
+      pair_run<R, 0>(acc, x, C, taps);
+      // Pixels past the strip's last live one land in its ring row unread.
+#pragma unroll
+      for (int i = 0; i < kPairRun; ++i) h[i * C] = quantize_u8_low(acc[i]);
+    }
+    __syncthreads();   // the chunk's ring rows are whole, and `in` is free
+    const bool more = c < last_chunk;
+    if (more) stage(c + 1);   // copied in while the vertical run goes
+    const int n = c - (kChunks - 1);
+    if (n >= 0 && live_lane) {
+      const uint8_t* chunk[kChunks];
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i) {
+        chunk[i] = ring + (n + i) % kChunks * kPairRun * kPairRingStride + threadIdx.x;
+      }
+      float acc[kPairRun];
+      pair_column<R, kSkip, kChunks, 0>(acc, chunk, taps);
+      const int yn = y0 + n * kPairRun;
+      uint8_t* out = dst + static_cast<size_t>(yn) * lanes + threadIdx.x;
+      // A whole run stores without a test a row; the band's last may not.
+      const int rows_out = min(kPairRun, y_end - yn);
+      if (rows_out == kPairRun) {
+#pragma unroll
+        for (int k = 0; k < kPairRun; ++k, out += lanes) *out = quantize_u8_low(acc[k]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kPairRun; ++k, out += lanes) {
+          if (k < rows_out) *out = quantize_u8_low(acc[k]);
+        }
+      }
+    }
+    if (!more) break;
+  }
+}
+
+// The strip and the bands of a launch: of the strips of 1 to
+// kPairMaxLanes / (kPairRun C) runs, those whose blocks leave the most
+// warps resident on an SM (fewer ran slower), and of them the one whose
+// grid, its row bands sized to fill the SMs' block slots once (a multiple
+// of kPairRun rows), puts the least work on the busiest SM: its blocks,
+// ceil(blocks / SMs), times a block's horizontal and vertical rows, 2 band
+// + 2r, times its lanes and kPairBlockLanes.  Narrow strips give more
+// strips and so taller bands, fewer halo rows a band; wide ones fewer
+// blocks.  At 2146x3239 and r = 15 it takes strips of 4 runs at C = 3
+// (bands of 224 rows, halo rows 11.8% of the horizontal pass) and of 8
+// runs on planes: the fastest of each in card times.
+struct PairLaunch {
+  int runs = 0;
+  int strips = 0;
+  int bands = 0;
+  int band_rows = 0;
+};
+
+template <int R, int kC>
+cudaError_t pair_launch_for(int batch, int height, int width, int channels,
+                            PairLaunch* best) {
+  long long best_cost = 0;
+  int best_warps = 0;
+  for (int runs = kPairMaxLanes / kPairRun / channels; runs >= 1; --runs) {
+    const PairGeometry g(R, channels, runs);
+    int sms = 0, per_sm = 0;
+    const cudaError_t err =
+        gip::blocks_per_sm<gauss_pair_rows<R, kC>>(g.lanes, g.bytes(), &sms, &per_sm);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) continue;
+    const long long strips = (width + g.strip_px - 1) / g.strip_px;
+    const long long fit = std::max(1LL, sms * per_sm / (strips * batch));
+    const int rows = static_cast<int>((height + fit - 1) / fit);
+    const int band_rows = (rows + kPairRun - 1) / kPairRun * kPairRun;
+    const int bands = (height + band_rows - 1) / band_rows;
+    const long long blocks = strips * bands * batch;
+    const long long cost = (blocks + sms - 1) / sms *
+                           (2LL * band_rows + 2 * R) * (g.lanes + kPairBlockLanes);
+    const int warps = per_sm * g.lanes / 32;
+    if (best->runs == 0 || warps > best_warps ||
+        (warps == best_warps && cost < best_cost)) {
+      *best = {runs, static_cast<int>(strips), bands, band_rows};
+      best_cost = cost;
+      best_warps = warps;
+    }
+  }
+  return best->runs > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+template <int R, int kC>
+int launch_pair_r(const uint8_t* src, uint8_t* dst, const GaussTaps& taps,
+                  int /*radius*/, int batch, int height, int width,
+                  int channels, int halo, cudaStream_t stream) {
+  constexpr auto kernel = gauss_pair_rows<R, kC>;
+  // The widest strip takes the most shared memory.
+  cudaError_t err = allow_shared<kernel>(
+      PairGeometry(R, channels, kPairMaxLanes / kPairRun / channels).bytes());
+  if (err != cudaSuccess) return err;
+  PairLaunch p;
+  err = pair_launch_for<R, kC>(batch, height, width, channels, &p);
+  if (err != cudaSuccess) return err;
+  const PairGeometry g(R, channels, p.runs);
+  kernel<<<dim3(p.strips, p.bands, batch), g.lanes, g.bytes(), stream>>>(
+      src, dst, taps, height, width, channels, halo, p.runs, p.band_rows);
+  return cudaGetLastError();
+}
+
+// The radii gauss_pair_rows serves: from the crossover to the API's 15, and
+// the cap, 31 (the radii with a weighted kernel of their own).
+constexpr bool pair_serves(int radius, int channels) {
+  return ((radius >= kPairMinRadius && radius <= 15) || radius == 31) &&
+         channels <= kPairMaxChannels;
+}
+
+// The channels a launch of gauss_pair_rows takes as a constant: 3, or 0.
+constexpr int pair_channels(int channels) { return channels == 3 ? 3 : 0; }
+
+template <int kC, int... Rs>
+constexpr std::array<GaussLaunch, sizeof...(Rs)> pair_table(
+    std::integer_sequence<int, Rs...>) {
+  return {&launch_pair_r<Rs + kPairMinRadius, kC>...};
+}
+
+// The tables gauss_pair_rows takes: w[t] and w[2r - t] the same float, bit
+// for bit, for every t (its one product a pair needs it); every tap >= 0
+// and their sum at most 1 + 2^-10, so that no sum leaves [0, 255.5) and
+// quantize_u8_low needs no clamp (each sum is at most 255 sum(w) (1 +
+// 2^-24)^(2r+1) < 255.3).  Every table the port builds is one; any other
+// takes gauss_window_rows<Weighted, r>.
+bool pair_takes(const GaussTaps& taps, int radius) {
+  double sum = 0.0;
+  for (int t = 0; t <= 2 * radius; ++t) {
+    uint32_t a, b;
+    std::memcpy(&a, &taps.w[t], sizeof a);
+    std::memcpy(&b, &taps.w[2 * radius - t], sizeof b);
+    if (a != b || !(taps.w[t] >= 0.0f)) return false;
+    sum += taps.w[t];
+  }
+  return sum <= 1.0 + 1.0 / 1024;
+}
+
 // The launch of radius r is entry r - 1.  halo: 0, or r (halo rows given).
+// The weighted taps go to gauss_pair_rows where it serves the radius and
+// takes the table, checked here, where the taps are copied.
 template <typename Mode>
 int launch_gauss(const uint8_t* src, uint8_t* dst, const float* weights,
                  int radius, int batch, int height, int width, int channels,
@@ -548,17 +920,23 @@ int launch_gauss(const uint8_t* src, uint8_t* dst, const float* weights,
   }
   GaussTaps taps = {};
   std::copy(weights, weights + 2 * radius + 1, taps.w);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same_v<Mode, gip::Weighted>) {
+    using Radii = std::make_integer_sequence<int, 16 - kPairMinRadius>;
+    static constexpr auto pairs = pair_table<0>(Radii());
+    static constexpr auto pairs3 = pair_table<3>(Radii());
+    if (pair_serves(radius, channels) && pair_takes(taps, radius)) {
+      const bool three = pair_channels(channels) == 3;
+      const GaussLaunch launch =
+          radius == 31 ? (three ? &launch_pair_r<31, 3> : &launch_pair_r<31, 0>)
+                       : (three ? pairs3 : pairs)[radius - kPairMinRadius];
+      return launch(src, dst, taps, radius, batch, height, width, channels,
+                    halo, s);
+    }
+  }
   return table[radius - 1](src, dst, taps, radius, batch, height, width,
-                           channels, halo, static_cast<cudaStream_t>(stream));
+                           channels, halo, s);
 }
-
-// Box at radii up to kBoxWindowMaxRadius takes the window kernel in box
-// mode (Box), whose outputs are independent sums with no running chain.  In
-// development probes on the H100 at 2146x3239x3 it beat box_window_rows's
-// running sums to r = 7 and lost from r = 8 (rows: 0.0539 against 0.0910 ms
-// at r = 1, 0.0924 against 0.0995 at r = 7, 0.1013 against 0.0993 at r = 8;
-// planes alike).  Entry r - 1 is radius r.
-constexpr int kBoxWindowMaxRadius = 7;
 
 template <int... Rs>
 constexpr std::array<GaussLaunch, sizeof...(Rs)> box_window_table(
@@ -1127,13 +1505,20 @@ extern "C" int gip_box_wide_rows(const uint8_t* src, uint8_t* tmp, uint8_t* dst,
 // launch functions above pick it: (function << 8) | R, where R is the
 // window kernel's template radius (0: the radius at run time) and function
 // is 1 gauss_window_rows<Weighted, R>, 2 <Folded, R>, 3 <Box, R>,
-// 4 box_window_rows, 5 box_wide_h + box_wide_v, 6 band_mma_rows; -1 where
-// the launch refuses the arguments.  kind: 0 the weighted gaussian
-// (gip_gaussian_rows, _planar), 1 the folded one, 2 the box (gip_box_*),
-// 3 the band.  A planar launch is a launch at one channel.
+// 4 box_window_rows, 5 box_wide_h + box_wide_v, 6 band_mma_rows,
+// 7 gauss_pair_rows<R, 0>, 8 gauss_pair_rows<R, 3>; -1 where the launch
+// refuses the arguments.  kind: 0 the weighted gaussian (gip_gaussian_rows,
+// _planar) with a table gauss_pair_rows takes (pair_takes), 4 with one it
+// does not, 1 the folded one, 2 the box (gip_box_*), 3 the band.  A planar
+// launch is a launch at one channel.
 extern "C" int gip_blur_route(int kind, int radius, int channels) {
   switch (kind) {
     case 0:
+      if (gauss_takes(radius, channels) && pair_serves(radius, channels)) {
+        return (pair_channels(channels) == 3 ? 8 << 8 : 7 << 8) | radius;
+      }
+      [[fallthrough]];
+    case 4:
       return gauss_takes(radius, channels)
                  ? (1 << 8) | kernel_radius<gip::Weighted>(radius) : -1;
     case 1:

@@ -6,7 +6,12 @@
   memory, the radius a template parameter at the radii the paths use, the
   taps a kernel parameter passed by value, register windows for the
   level-2 tap order; bit-exact.  1 <= r <= `GAUSS_MAX_RADIUS`, at most
-  `GAUSS_MAX_CHANNELS` channels on the card.
+  `GAUSS_MAX_CHANNELS` channels on the card.  From `blur.cu`'s crossover to
+  r = 15 and at 31, at most 12 channels, a weighted table
+  that `pair_table` admits (it reads the same backwards, bit for bit, its
+  taps are >= 0 and sum to at most 1 + 2^-10: every table the port builds)
+  goes to `gauss_pair_rows`, which forms one product a symmetric tap pair;
+  also bit-exact.
 * `gaussian_band_rows` replaces `ops/pallas/blur_mxu.py::_gauss_mxu_kernel`
   in gaussian mode (level 4, r >= 3): the bf16 hi + lo band products of
   both passes on the tensor cores in one launch (`band_mma_rows`).  The
@@ -38,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -125,15 +131,18 @@ def library(device: torch.device) -> ctypes.CDLL:
     return build.load("blur", device, _SIGNATURES)
 
 
-#: `gip_blur_route`'s kinds of launch.
-WEIGHTED, FOLDED, BOX, BAND = range(4)
+#: `gip_blur_route`'s kinds of launch: WEIGHTED with a table that
+#: `pair_table` admits, OTHER_TABLE the weighted gaussian with one it does
+#: not.
+WEIGHTED, FOLDED, BOX, BAND, OTHER_TABLE = range(5)
 #: The device functions `gip_blur_route` answers with, by the code in its
 #: answer's high byte; the low byte is a window kernel's template radius
 #: (0: the radius at run time).
 _FUNCTIONS = {1: "gauss_window_rows<Weighted, {}>",
               2: "gauss_window_rows<Folded, {}>",
               3: "gauss_window_rows<Box, {}>", 4: "box_window_rows",
-              5: "box_wide_h + box_wide_v", 6: "band_mma_rows"}
+              5: "box_wide_h + box_wide_v", 6: "band_mma_rows",
+              7: "gauss_pair_rows<{}, 0>", 8: "gauss_pair_rows<{}, 3>"}
 _ROUTES: dict[tuple[int, int, int], str] = {}
 #: Each launch function's `LAUNCHES` name and kind of launch.
 _COUNTED = {"gip_gaussian_rows": ("gaussian_rows", WEIGHTED),
@@ -162,12 +171,26 @@ def route(lib: ctypes.CDLL, kind: int, radius: int, channels: int) -> str:
     return name
 
 
+def pair_table(table: bytes) -> bool:
+    """Whether `gauss_pair_rows` takes the float32 table `table` (its
+    bytes), as `blur.cu`'s `pair_takes` checks it: it reads the same
+    backwards, bit for bit, and its taps are >= 0 and sum to at most
+    1 + 2^-10."""
+    words = memoryview(table).cast("I")
+    taps = memoryview(table).cast("f")
+    return (words.tolist() == words[::-1].tolist()
+            and all(t >= 0.0 for t in taps)
+            and math.fsum(taps) <= 1.0 + 2.0 ** -10)
+
+
 def _make_plan(fn_name: str, rows: torch.Tensor, radius: int,
                channels: int) -> plan.Plan:
     lib = library(rows.device)
     name, kind = _COUNTED[fn_name]
+    other = (route(lib, OTHER_TABLE, radius, channels)
+             if kind == WEIGHTED else None)
     return plan.Plan(lib, fn_name, name, route(lib, kind, radius, channels),
-                     rows.get_device())
+                     rows.get_device(), other, pair_table)
 
 
 def plan_for(fn_name: str, rows: torch.Tensor, radius: int,
@@ -191,14 +214,16 @@ def _launch(fn_name: str, rows: torch.Tensor, channels: int, radius: int,
         if radius < 1:
             raise ValueError(f"radius must be >= 1; got {radius}")
         p = plan_for(fn_name, rows, radius, channels)
+        route_key = None
         if taps is not None:
-            tables_or_scale = (p.host_taps(taps), *tables_or_scale)
+            array, route_key = p.host_taps(taps)
+            tables_or_scale = (array, *tables_or_scale)
         out = torch.empty_like(rows)
         buffers = [rows.data_ptr(), out.data_ptr()]
         if scratch:
             buffers.insert(1, torch.empty_like(rows).data_ptr())
         p.launch(*buffers, *tables_or_scale, radius, batch, height, width,
-                 channels)
+                 channels, route_key=route_key)
         return out
 
 

@@ -9,9 +9,10 @@ every plane on its own in one launch, both passes in it.  With
 and below each plane, which the vertical pass reads unclamped.
 
 A plane is an image of one channel, so these launch the rows kernels of
-`blur.cu` at one channel, `gauss_window_rows` and `box_window_rows` (box
-routed on the radius as `blur.box_rows` routes it), whose staging reads the
-halo rows when they are given.  They take
+`blur.cu` at one channel, `gauss_window_rows` (`gauss_pair_rows` where
+`blur.gaussian_rows` takes it) and `box_window_rows` (box routed on the
+radius as `blur.box_rows` routes it), whose staging reads the halo rows
+when they are given.  They take
 2r + 1 <= `MAX_KERNEL_TAPS` taps (r <= 31), as the TPU kernel's planar path
 did; a larger radius raises ValueError, on every device.  On a CPU tensor a
 wrapper returns the plain version; on a CUDA tensor it launches the kernel
@@ -90,12 +91,13 @@ def _launch(fn_name: str, planes: torch.Tensor, dims: tuple[int, int, int],
     with spans.span("ops.launch"):
         n, height, width = dims
         p = blur.plan_for(fn_name, planes, radius, 1)
+        route_key = None
         if isinstance(table_or_scale, torch.Tensor):
-            table_or_scale = p.host_taps(table_or_scale)
+            table_or_scale, route_key = p.host_taps(table_or_scale)
         out = torch.empty((n, height, width), dtype=torch.uint8,
                           device=planes.device)
         p.launch(planes.data_ptr(), out.data_ptr(), table_or_scale, radius, n,
-                 height, width, int(rows_prepadded))
+                 height, width, int(rows_prepadded), route_key=route_key)
         return out
 
 

@@ -82,12 +82,14 @@ constexpr int kStageRows = 16;
 // passes the image's edge is clamped byte by byte, with nrows loads in
 // flight a thread.  Before reading, the caller calls wait_async_copies
 // (kAsync) and then synchronises the block.  A caller that waits at once
-// gains nothing from cp.async, and measured it slower.
+// gains nothing from cp.async, and measured it slower.  kBlockThreads 0:
+// the block's threads are blockDim.x, known only at run time.
 template <int kBlockThreads, bool kAsync = true>
 __device__ __forceinline__ void stage_rows(
     const uint8_t* __restrict__ src, uint8_t* __restrict__ staged, int* shift,
     int stride, int g0, int len, int lanes, int channels, int v0, int nrows,
     int row_lo, int row_count) {
+  const int threads = kBlockThreads > 0 ? kBlockThreads : blockDim.x;
   const auto row_at = [&](int v) {
     return src + static_cast<ptrdiff_t>(clamp_row(v, row_lo, row_count)) * lanes;
   };
@@ -95,7 +97,7 @@ __device__ __forceinline__ void stage_rows(
     const uint8_t* image_begin = src + static_cast<ptrdiff_t>(row_lo) * lanes;
     const uint8_t* image_end = image_begin + static_cast<size_t>(row_count) * lanes;
 #pragma unroll 2
-    for (int k = threadIdx.x / 32; k < nrows; k += kBlockThreads / 32) {
+    for (int k = threadIdx.x / 32; k < nrows; k += threads / 32) {
       const uint8_t* a = row_at(v0 + k) + g0;
       const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(a) & 15);
       const uint8_t* base = a - sh;   // 16-byte aligned
@@ -117,7 +119,7 @@ __device__ __forceinline__ void stage_rows(
     }
   } else {
     if (threadIdx.x < kStageRows) shift[threadIdx.x] = 0;
-    for (int e = threadIdx.x; e < len; e += kBlockThreads) {
+    for (int e = threadIdx.x; e < len; e += threads) {
       int at = g0 + e;
       if (at < 0) {
         at = e % channels;
@@ -160,21 +162,18 @@ cudaError_t allow_shared(int bytes) {
   return err;
 }
 
-// Row bands of `block_threads`-thread blocks of `kernel` with `bytes` of
-// shared memory over `columns` strips (times the batch): as many bands as
-// fill the SMs' block slots once (a block's time grows with its rows, a
-// partial last wave idles most SMs), each a multiple of `multiple` rows and
-// at least `least`.  The result of a kernel does not depend on it.
+// The SMs of the current device and the blocks of `block_threads` threads
+// and `bytes` of shared memory of `kernel` that one SM holds at once.
 //
-// The SM count and the blocks an SM holds are fixed for a kernel, a card,
-// its threads and its shared memory, so they are asked of the runtime on
-// the first launch of each (device, threads, bytes) and kept, key and
-// answer in one atomic word of a small table that is only ever filled (a
-// slot is claimed by compare-and-swap, so threads that launch at once keep
-// consistent entries); a launch whose key finds no slot asks again.
+// Both are fixed for a kernel, a card, its threads and its shared memory,
+// so they are asked of the runtime on the first launch of each (device,
+// threads, bytes) and kept, key and answer in one atomic word of a small
+// table that is only ever filled (a slot is claimed by compare-and-swap, so
+// threads that launch at once keep consistent entries); a launch whose key
+// finds no slot asks again.
 template <auto kernel>
-cudaError_t band_rows_for(int block_threads, int bytes, long long columns,
-                          int height, int multiple, int least, int* band_rows) {
+cudaError_t blocks_per_sm(int block_threads, int bytes, int* sms_out,
+                          int* per_sm_out) {
   constexpr int kSlots = 64;
   // key (device + 1, threads, bytes) << 24 | sms << 12 | per_sm; 0: empty.
   static std::atomic<unsigned long long> held[kSlots];
@@ -224,6 +223,22 @@ cudaError_t band_rows_for(int block_threads, int bytes, long long columns,
           std::memory_order_acq_rel);
     }
   }
+  *sms_out = sms;
+  *per_sm_out = per_sm;
+  return cudaSuccess;
+}
+
+// Row bands of `block_threads`-thread blocks of `kernel` with `bytes` of
+// shared memory over `columns` strips (times the batch): as many bands as
+// fill the SMs' block slots once (a block's time grows with its rows, a
+// partial last wave idles most SMs), each a multiple of `multiple` rows and
+// at least `least`.  The result of a kernel does not depend on it.
+template <auto kernel>
+cudaError_t band_rows_for(int block_threads, int bytes, long long columns,
+                          int height, int multiple, int least, int* band_rows) {
+  int sms = 0, per_sm = 0;
+  const cudaError_t err = blocks_per_sm<kernel>(block_threads, bytes, &sms, &per_sm);
+  if (err != cudaSuccess) return err;
   const long long bands = std::max(1LL, sms * std::max(per_sm, 1) / columns);
   const int rows = static_cast<int>((height + bands - 1) / bands);
   *band_rows = std::max((rows + multiple - 1) / multiple * multiple, least);

@@ -107,8 +107,8 @@ _SESSION_LOCK = threading.Lock()
 #: The hand kernels as a trace names them (ops/cuda/*.cu).  Each launch
 #: that `ops.cuda.LAUNCHES` counts launches one of them; `box_rows` past
 #: r = 64 launches `box_wide_v` after `box_wide_h`.
-HAND_KERNELS = ("gauss_window_rows", "box_window_rows", "box_wide_h",
-                "band_mma_rows", "sobel_tile_rows")
+HAND_KERNELS = ("gauss_window_rows", "gauss_pair_rows", "box_window_rows",
+                "box_wide_h", "band_mma_rows", "sobel_tile_rows")
 SECOND_KERNEL = ("box_wide_v", "box_wide_h")
 
 OCCUPANCY_NOTE = ("not measured: achieved occupancy is an Nsight Compute "

@@ -15,8 +15,11 @@ such runs.  Before each run the card sleeps (`torch.cuda._sleep`) while the
 host queues the run's launches, so the events time the kernels and not the
 wrappers' host work, which for a kernel of tens of microseconds takes about
 as long; the host's microseconds a launch (host clock around the queueing,
-least of the runs) are printed beside them.  The cases: `gaussian_rows` at r = 1, 3, 15, 20 (a radius without a kernel of
-its own), 31 and `gaussian_folded_rows` at r = 1, 2 (sigma as `GAUSS`),
+least of the runs) are printed beside them.  The cases: `gaussian_rows` at r = 1, 3, 8 to 15, 20 (a radius without a kernel of
+its own), 31, and again at r = 8 to 15 and 31 with the table's first tap one
+float up ("skewed": not symmetric, so `blur.cu` takes the window kernel
+where `gauss_pair_rows` takes the symmetric table, the pair that sets the
+crossover `kPairMinRadius`), and `gaussian_folded_rows` at r = 1, 2 (sigma as `GAUSS`),
 each given its table where its checkout's kernel takes it (on the host, or
 on the card where an older checkout reads it there), `sobel_rows` and
 `sobel_f32_rows`, `box_rows` at r = 1, 5, 7, 8, 15, 40 and 4000 (wider than the
@@ -62,7 +65,9 @@ REPEATS = 3
 SLEEP_CYCLES = 50_000_000
 PACKAGE = "gpu_image_processing_tpu_torch"
 BOX_RADII = (1, 5, 7, 8, 15, 40, 4000)
-GAUSS = ((1, 1.0), (3, 2.0), (15, 8.0), (20, 8.0), (31, 8.0))   # (radius, sigma)
+GAUSS = ((1, 1.0), (3, 2.0), *((r, r / 2.0) for r in range(8, 15)), (15, 8.0),
+         (20, 8.0), (31, 8.0))   # (radius, sigma)
+SKEWED = tuple(g for g in GAUSS if 8 <= g[0] <= 15 or g[0] == 31)
 FOLDED = ((1, 1.0), (2, 1.5))
 BAND = ((3, 2.0), (15, 5.0), (31, 8.0))
 PLANAR_GAUSS = ((1, 1.0), (2, 1.5), (3, 2.0), (5, 2.5), (15, 8.0), (20, 8.0),
@@ -113,6 +118,8 @@ def gaussian_table(weights, fn, rows, table, radius: int, channels: int):
 def cases(blur, sobel, weights, blur_planar, sobel_planar, models, rows,
           planes, width: int, channels: int) -> dict:
     """name -> zero-argument launch of one checkout's kernel."""
+    import numpy as np
+
     dev = rows.device
     out = {}
     for name, fn, table in (("gaussian_rows", blur.gaussian_rows, GAUSS),
@@ -123,6 +130,12 @@ def cases(blur, sobel, weights, blur_planar, sobel_planar, models, rows,
                                 weights.gaussian_kernel_f32(r, sigma), r, channels)
             out[f"{name} r={r}"] = (
                 lambda fn=fn, r=r, wr=wr: fn(rows, wr, r, channels))
+    for r, sigma in SKEWED:
+        skewed = np.array(weights.gaussian_kernel_f32(r, sigma), np.float32)
+        skewed[0] = np.nextafter(skewed[0], np.float32(1))
+        wr = gaussian_table(weights, blur.gaussian_rows, rows, skewed, r, channels)
+        out[f"gaussian_rows r={r} skewed"] = (
+            lambda r=r, wr=wr: blur.gaussian_rows(rows, wr, r, channels))
     out["sobel_rows"] = lambda: sobel.sobel_rows(rows, width, channels)
     out["sobel_f32_rows"] = lambda: sobel.sobel_f32_rows(rows, width, channels)
     for r in BOX_RADII:

@@ -7,9 +7,11 @@ Usage, from the root of the repository, on a machine with nvcc:
 
 builds the library (ops/cuda/build.py), disassembles it with `cuobjdump
 -sass`, and for each kernel whose mangled name contains KERNEL prints its
-instruction count, then the count of each phase between two block barriers
-(BAR.SYNC) with its multiplies (FMUL), adds (FADD), shared loads and stores,
-device stores, constant loads (LDC) and local loads and stores (LDL, STL).
+instruction count and its resources (`cuobjdump -res-usage`: registers a
+thread, stack and local bytes, which spills take), then the count of each
+phase between two block barriers (BAR.SYNC) with its multiplies (FMUL),
+adds (FADD), shared loads and stores, device stores, constant loads (LDC)
+and local loads and stores (LDL, STL).
 `ncu` gives no counters on the card's machine; the static counts of the
 unrolled tap loops stand in for them.
 """
@@ -53,6 +55,21 @@ def functions(sass: str) -> dict[str, list[str]]:
     return out
 
 
+def resources(usage: str) -> dict[str, str]:
+    """Mangled name -> its `cuobjdump -res-usage` line (REG, STACK, SHARED,
+    LOCAL, ...)."""
+    out = {}
+    name = None
+    for line in usage.splitlines():
+        m = re.match(r"\s*Function (\S+):", line)
+        if m:
+            name = m.group(1)
+        elif name and "REG:" in line:
+            out[name] = " ".join(line.split())
+            name = None
+    return out
+
+
 def opcode(instruction: str) -> str:
     return instruction.split()[0].split(".")[0]
 
@@ -71,13 +88,16 @@ def main(argv: list[str] | None = None) -> int:
         Path(build.nvcc_path()).parent / CUOBJDUMP)
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
                           text=True, check=True).stdout
+    usage = resources(subprocess.run(
+        [tool, "-res-usage", str(library)], capture_output=True, text=True,
+        check=True).stdout)
     pattern = args.kernel or DEFAULTS[args.library]
     found = False
     for name, ins in functions(sass).items():
         if pattern not in name:
             continue
         found = True
-        print(f"{name}: {len(ins)} instructions")
+        print(f"{name}: {len(ins)} instructions; {usage.get(name, 'no resource line')}")
         bars = [i for i, s in enumerate(ins) if s.startswith("BAR.SYNC")]
         for a, b in zip([0] + bars, bars + [len(ins)]):
             counts = collections.Counter(opcode(s) for s in ins[a:b])

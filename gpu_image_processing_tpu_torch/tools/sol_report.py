@@ -73,6 +73,7 @@ SOL_IMPOSSIBLE_PCT = 110.0
 #: `LAUNCHES` key) each belongs to.
 TRACE_KERNELS = (
     ("gauss_window_rows<gip::Weighted", "gaussian_rows"),
+    ("gauss_pair_rows", "gaussian_rows"),
     ("gauss_window_rows<gip::Folded", "gaussian_folded_rows"),
     ("gauss_window_rows<gip::Box", "box_rows"),
     ("box_window_rows", "box_rows"),

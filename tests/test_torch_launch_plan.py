@@ -68,6 +68,10 @@ class StubLibrary:
         if kind == blur.BOX:
             return (3 << 8 | radius if radius <= 7
                     else 4 << 8 if radius <= 64 else 5 << 8)
+        if kind == blur.WEIGHTED and 8 <= radius <= 15 and channels <= 12:
+            return (8 if channels == 3 else 7) << 8 | radius
+        if kind == blur.OTHER_TABLE:
+            kind = blur.WEIGHTED
         return (1 + kind) << 8 | (radius if radius <= 15 else 0)
 
     @staticmethod
@@ -189,10 +193,36 @@ def test_each_launch_keeps_the_array_it_was_given(stub):
     # plan's slot that a later table replaces.
     p = blur.plan_for("gip_gaussian_rows", _rows((4, 12)), 3, 3)
     one, two = _table(3, 1.0), _table(3, 2.0)
-    first = p.host_taps(one)
-    second = p.host_taps(two)
+    first, _ = p.host_taps(one)
+    second, _ = p.host_taps(two)
     assert list(first) == one.tolist() and list(second) == two.tolist()
-    assert p.host_taps(two) is second
+    assert p.host_taps(two)[0] is second
+
+
+def test_a_table_that_is_not_symmetric_counts_under_the_window_kernel(stub):
+    # From the crossover, the port's tables run gauss_pair_rows; one whose
+    # taps differ from their mirror in a bit runs the window kernel, and the
+    # route counted follows the table of each launch.
+    routes = ROUTES.copy()
+    rows = _rows((4, 12))
+    symmetric = _table(15, 20.0)
+    skewed = symmetric.clone()
+    skewed[0] = float(np.nextafter(np.float32(skewed[0].item()), np.float32(1)))
+    for w in (symmetric, skewed, symmetric):
+        blur._launch_gaussian("gip_gaussian_rows", rows, w, 15, 3)
+    blur_planar._launch("gip_gaussian_planar", _rows((3, 4, 4)), (3, 4, 4),
+                        15, False, skewed)
+    blur_planar._launch("gip_gaussian_planar", _rows((3, 4, 4)), (3, 4, 4),
+                        15, False, symmetric)
+    assert ROUTES - routes == {
+        "gaussian_rows: gauss_pair_rows<15, 3>": 2,
+        "gaussian_rows: gauss_window_rows<Weighted, 15>": 1,
+        "gaussian_planar: gauss_window_rows<Weighted, 15>": 1,
+        "gaussian_planar: gauss_pair_rows<15, 0>": 1}
+    # Below the crossover both tables take the window kernel.
+    routes = ROUTES.copy()
+    blur._launch_gaussian("gip_gaussian_rows", rows, _table(7, 3.0), 7, 3)
+    assert ROUTES - routes == {"gaussian_rows: gauss_window_rows<Weighted, 7>": 1}
 
 
 @pytest.mark.parametrize("launch,message", [
@@ -347,6 +377,13 @@ def _host(radius: int, sigma: float) -> torch.Tensor:
     return _table(radius, sigma)
 
 
+def _skewed(radius: int, sigma: float) -> torch.Tensor:
+    """The table with its first tap one float up: not symmetric."""
+    table = _table(radius, sigma)
+    table[0] = float(np.nextafter(np.float32(table[0].item()), np.float32(1)))
+    return table
+
+
 # (name, launch of (rows, channels), plain of (rows, channels), route)
 ROUTED = [
     ("weighted3", lambda x, c: blur.gaussian_rows(x, _host(3, 2.0), 3, c),
@@ -354,6 +391,10 @@ ROUTED = [
      "gaussian_rows: gauss_window_rows<Weighted, 3>"),
     ("weighted15", lambda x, c: blur.gaussian_rows(x, _host(15, 20.0), 15, c),
      lambda x, c: blur.gaussian_rows_plain(x, _host(15, 20.0), 15, c),
+     "gaussian_rows: gauss_pair_rows<15, {}>"),
+    ("weighted15_asymmetric",
+     lambda x, c: blur.gaussian_rows(x, _skewed(15, 20.0), 15, c),
+     lambda x, c: blur.gaussian_rows_plain(x, _skewed(15, 20.0), 15, c),
      "gaussian_rows: gauss_window_rows<Weighted, 15>"),
     ("weighted0", lambda x, c: blur.gaussian_rows(x, _host(20, 8.0), 20, c),
      lambda x, c: blur.gaussian_rows_plain(x, _host(20, 8.0), 20, c),
@@ -402,7 +443,10 @@ def test_every_route_through_its_plan_equals_plain(rng, name, launch, plain,
     assert got.get("built", 0) <= 3
     assert got.get("built", 0) + got.get("held", 0) == calls
     if route is not None:
-        assert (ROUTES - routes)[route] == calls
+        # A pair route names the channels it took as a constant (3) or not.
+        got = ROUTES - routes
+        assert sum(got[name] for name in {route.format(c) for c in (0, 3)}
+                   ) == calls, got
 
 
 @pytest.mark.cuda

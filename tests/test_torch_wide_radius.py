@@ -253,7 +253,9 @@ def test_route_names_what_blur_cu_answers():
     # Every launch function is counted under its wrapper's name and kind.
     assert set(blur._COUNTED) == set(blur._SIGNATURES) - {"gip_blur_route"}
     # The library's answer, (function << 8) | template radius, named.
-    answers = {(blur.WEIGHTED, 15, 3): 1 << 8 | 15,
+    answers = {(blur.WEIGHTED, 15, 3): 8 << 8 | 15,
+               (blur.WEIGHTED, 15, 1): 7 << 8 | 15,
+               (blur.OTHER_TABLE, 15, 3): 1 << 8 | 15,
                (blur.WEIGHTED, 16, 3): 1 << 8 | 0,
                (blur.FOLDED, 2, 3): 2 << 8 | 2,
                (blur.BOX, 7, 3): 3 << 8 | 7,
@@ -265,6 +267,7 @@ def test_route_names_what_blur_cu_answers():
     blur._ROUTES.clear()
     try:
         assert [blur.route(lib, *key) for key in list(answers)[:-1]] == [
+            "gauss_pair_rows<15, 3>", "gauss_pair_rows<15, 0>",
             "gauss_window_rows<Weighted, 15>",
             "gauss_window_rows<Weighted, 0>",
             "gauss_window_rows<Folded, 2>", "gauss_window_rows<Box, 7>",
@@ -295,10 +298,10 @@ def _routed(launch) -> dict:
 @pytest.mark.parametrize("radius,gaussian,box", [
     (3, "gauss_window_rows<Weighted, 3>", "gauss_window_rows<Box, 3>"),
     (7, "gauss_window_rows<Weighted, 7>", "gauss_window_rows<Box, 7>"),
-    (8, "gauss_window_rows<Weighted, 8>", "box_window_rows"),
-    (15, "gauss_window_rows<Weighted, 15>", "box_window_rows"),
+    (8, "gauss_pair_rows<8, 3>", "box_window_rows"),
+    (15, "gauss_pair_rows<15, 3>", "box_window_rows"),
     (16, "gauss_window_rows<Weighted, 0>", "box_window_rows"),
-    (31, "gauss_window_rows<Weighted, 31>", "box_window_rows"),
+    (31, "gauss_pair_rows<31, 3>", "box_window_rows"),
     (65, None, "box_wide_h + box_wide_v")])
 def test_kernel_routes_name_the_function_each_radius_runs(rng, radius,
                                                           gaussian, box):
@@ -317,8 +320,12 @@ def test_kernel_routes_name_the_function_each_radius_runs(rng, radius,
     assert _routed(lambda: blur.gaussian_rows(rows, w, radius, 3)) == {
         f"gaussian_rows: {gaussian}": 1}
     planes = _t(np.moveaxis(img, 2, 0).copy()).to(dev)
+    # Planes are a launch at one channel, which gauss_pair_rows takes at
+    # run time.
+    planar = (gaussian.replace(", 3>", ", 0>")
+              if gaussian.startswith("gauss_pair_rows") else gaussian)
     assert _routed(lambda: blur_planar.gaussian_planar(planes, w, radius)) == {
-        f"gaussian_planar: {gaussian}": 1}
+        f"gaussian_planar: {planar}": 1}
     assert _routed(lambda: blur_planar.box_planar(planes, radius)) == {
         f"box_planar: {box}": 1}
     hi, lo = (weights_to_torch(t, dev) for t in bf16_split(table))
@@ -338,7 +345,7 @@ def test_the_cells_modules_route_and_the_server_shows_it(rng):
     frame = _t(make_image(rng, 64, 96, 3)).to(dev)
     got = _routed(lambda: (GaussianBlur(SIGMA, RADIUS)(frame),
                            BoxBlur(RADIUS)(frame)))
-    assert got == {"gaussian_rows: gauss_window_rows<Weighted, 15>": 1,
+    assert got == {"gaussian_rows: gauss_pair_rows<15, 3>": 1,
                    "box_rows: box_window_rows": 1}
     status, stats = create_app(FilterRuntime(dev)).dispatch(
         Request(method="GET", path="/api/stats"))
@@ -346,21 +353,122 @@ def test_the_cells_modules_route_and_the_server_shows_it(rng):
 
 
 @pytest.mark.cuda
-def test_a_graph_replay_counts_its_routes(rng):
+@pytest.mark.parametrize("radius,function", [
+    (16, "gauss_window_rows<Weighted, 0>"), (15, "gauss_pair_rows<15, 3>")])
+def test_a_graph_replay_counts_its_routes(rng, radius, function):
     dev = _card()
     img = make_image(rng, 61, 97, 3)
     rt = FilterRuntime(dev)
     for _ in range(2):   # the second request captures the graph
-        rt.run("gaussian", img, level=2, sigma=SIGMA, radius=16)
+        rt.run("gaussian", img, level=2, sigma=SIGMA, radius=radius)
     (exe,) = rt.executables.values()
     assert exe.captured
-    assert exe.launches.routes == {
-        "gaussian_rows: gauss_window_rows<Weighted, 0>": 1}
+    assert exe.launches.routes == {f"gaussian_rows: {function}": 1}
     launches, routes = LAUNCHES.copy(), ROUTES.copy()
     with exe.staged(img.reshape(61, -1)):
         replayed = exe.fetch(exe.run()).reshape(img.shape)
     assert LAUNCHES - launches == exe.launches
     assert ROUTES - routes == exe.launches.routes
-    table = gaussian_kernel_f32(16, SIGMA)
+    table = gaussian_kernel_f32(radius, SIGMA)
     np.testing.assert_array_equal(replayed,
-                                  oracle.gaussian_blur(img, table, 16))
+                                  oracle.gaussian_blur(img, table, radius))
+
+
+# -- gauss_pair_rows on the card (CPU models: tests/test_torch_pair_rows.py) --
+
+#: The radii gauss_pair_rows serves: blur.cu's crossover to 15, and 31.
+PAIR_RADII = list(range(8, 16)) + [31]
+
+
+def _pair_sigma(radius: int) -> float:
+    return SIGMA if radius == 15 else radius / 2.0
+
+
+def _skewed(table: np.ndarray) -> np.ndarray:
+    """`table` with its first tap one float up: not symmetric."""
+    table = np.array(table, np.float32)
+    table[0] = np.nextafter(table[0], np.float32(1))
+    return table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 3, 4])
+@pytest.mark.parametrize("radius", PAIR_RADII)
+def test_pair_kernel_equals_plain_on_card(rng, radius, channels):
+    # Widths of 3239 pixels (the README photo's), 161 (a strip and a pixel)
+    # and 1; heights below one band; rows, a batch of 3, and planes with
+    # and without halo rows.  Every launch is counted under the function.
+    dev = _card()
+    c = channels
+    w = weights_to_torch(gaussian_kernel_f32(radius, _pair_sigma(radius)),
+                         torch.device("cpu"))
+    w_dev = w.to(dev)
+    calls = 0
+    routes = ROUTES.copy()
+    for h, width in [(70, 3239), (5, 161), (37, 161), (31, 1), (1, 161)]:
+        rows = _t(make_image(rng, h, width, c)).reshape(h, -1).to(dev)
+        assert torch.equal(blur.gaussian_rows(rows, w, radius, c),
+                           blur.gaussian_rows_plain(rows, w_dev, radius, c)), (
+            h, width)
+        batch = _t(make_image(rng, 3 * h, width, c)).reshape(3, h, -1).to(dev)
+        out = blur.gaussian_rows(batch, w, radius, c)
+        assert torch.equal(out, blur.gaussian_rows_plain(batch, w_dev, radius, c))
+        for i in range(3):
+            assert torch.equal(out[i], blur.gaussian_rows(batch[i].contiguous(),
+                                                          w, radius, c))
+        calls += 5
+    torch.cuda.synchronize()
+    assert ROUTES - routes == {
+        f"gaussian_rows: gauss_pair_rows<{radius}, {3 if c == 3 else 0}>": calls}
+    planes = _t(make_image(rng, 3 * (40 + 2 * radius), 333, 1)).reshape(
+        3, 40 + 2 * radius, 333).to(dev)
+    for halo in (False, True):
+        assert torch.equal(
+            blur_planar.gaussian_planar(planes, w, radius, halo),
+            blur_planar.gaussian_planar_plain(planes, w_dev, radius, halo))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [8, 15, 31])
+def test_pair_kernel_on_the_photo_size_equals_plain_and_oracle(rng, radius):
+    dev = _card()
+    img = make_image(rng, 2146, 3239, 3)
+    table = gaussian_kernel_f32(radius, _pair_sigma(radius))
+    w = weights_to_torch(table, torch.device("cpu"))
+    got = blur.gaussian_rows(_rows(img).to(dev), w, radius, 3)
+    want = blur.gaussian_rows_plain(_rows(img).to(dev), w.to(dev), radius, 3)
+    assert int((got.int() - want.int()).abs().max()) == 0
+    if radius == 15:
+        np.testing.assert_array_equal(got.cpu().numpy().reshape(img.shape),
+                                      oracle.gaussian_blur(img, table, radius))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [8, 15, 31])
+def test_a_table_that_is_not_symmetric_takes_the_window_kernel(rng, radius):
+    # The launch checks the table it copies; the route counted and the
+    # kernel the trace names follow it, and both tables give their exact
+    # function.
+    from gpu_image_processing_tpu_torch.profiling import profiler
+
+    dev = _card()
+    rows = _rows(make_image(rng, 90, 400, 3)).to(dev)
+    table = gaussian_kernel_f32(radius, _pair_sigma(radius))
+    names = {}
+    for kind, t in (("symmetric", table), ("skewed", _skewed(table))):
+        w = weights_to_torch(t, torch.device("cpu"))
+        routes = ROUTES.copy()
+        with profiler.traced([dev]) as prof:
+            got = blur.gaussian_rows(rows, w, radius, 3)
+        assert torch.equal(got, blur.gaussian_rows_plain(rows, w.to(dev),
+                                                         radius, 3)), kind
+        (names[kind],) = ROUTES - routes
+        traced = {profiler.short_kernel_name(e.key)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and profiler.PRIMER_KERNEL not in e.key}
+        function = names[kind].split(": ")[1].split("<")[0]
+        assert {k.split("<")[0] for k in traced} == {function}, (kind, traced)
+    assert names == {
+        "symmetric": f"gaussian_rows: gauss_pair_rows<{radius}, 3>",
+        "skewed": f"gaussian_rows: gauss_window_rows<Weighted, {radius}>"}
