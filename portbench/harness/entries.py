@@ -36,7 +36,7 @@ import torch
 
 from ..inputs.scene import pool as image_pool
 from ..reference import filters as reference
-from ..reference import png
+from ..reference import jpeg, png
 from . import schedule
 from .check import Comparison
 
@@ -234,8 +234,8 @@ class ForwardEntry(_Loop):
         return len(self.sample.items)
 
 
-def _data_url(png_bytes: bytes) -> bytes:
-    return b"data:image/png;base64," + base64.b64encode(png_bytes)
+def _data_url(mime: str, payload: bytes) -> bytes:
+    return f"data:{mime};base64,".encode() + base64.b64encode(payload)
 
 
 def _png_of_data_url(url: str) -> np.ndarray:
@@ -245,9 +245,32 @@ def _png_of_data_url(url: str) -> np.ndarray:
     return png.decode(base64.b64decode(payload))
 
 
+@dataclass
+class Upload:
+    """One upload of the pool: its size, its index in the size's pool, the
+    image made from the seed, its data URL and, for a JPEG, what the
+    writer wrote (whose reference decode the server's is held to)."""
+
+    size: tuple[int, int]
+    index: int
+    image: np.ndarray
+    url: bytes
+    written: jpeg.Written | None = None
+
+
+#: Threads that send the warm-up's requests at once.
+WARM_THREADS = 4
+
+
 class HttpEntry:
     """The UI's server, in this process, and its clients, threads of one
-    process of their own."""
+    process of their own.
+
+    The uploads are PNGs, or JPEGs where the mix says so (`upload`,
+    `spec.check_mix`), written by `reference/jpeg.py` as a phone camera
+    writes them.  Each call template is one request body: its filter and
+    its `sigma` and `radius` (`schedule.params`), as the UI's sliders send
+    them."""
 
     kind = "http"
 
@@ -276,26 +299,41 @@ class HttpEntry:
         sizes = [tuple(s) for s in mix["sizes"]]
         images = image_pool(self.rng, (cfg["height"], cfg["width"]), sizes,
                             int(mix["pool"]))
-        self.uploads = [(size, i, img, _data_url(png.encode(img)))
-                        for size in sizes for i, img in enumerate(images[size])]
+        self.uploads = [self._upload(size, i, img) for size in sizes
+                        for i, img in enumerate(images[size])]
         # The UI sends its sliders' values with every filter.
-        self.fields = {t["filter"]: {"filter": t["filter"],
-                                     **ctx.config["filters"][t["filter"]],
-                                     "enable_profiling": False}
-                       for t in mix["calls"]}
-        ctx.log(f"portbench: uploads {len(self.uploads)} PNG, "
-                f"{sum(len(u[3]) for u in self.uploads)} data-URL bytes, "
-                f"{[len(u[3]) for u in self.uploads]}")
+        self.fields = [{"filter": t["filter"],
+                        **schedule.params(t, ctx.config),
+                        "enable_profiling": False} for t in mix["calls"]]
+        ctx.log(f"portbench: uploads {len(self.uploads)} "
+                f"{mix.get('upload', {}).get('format', 'png').upper()}, "
+                f"{sum(len(u.url) for u in self.uploads)} data-URL bytes, "
+                f"{[len(u.url) for u in self.uploads]}")
         self._start_clients()
         self._warm()
 
-    def _plan(self, client: int) -> list[tuple[int, str]]:
-        """Client `client`'s (upload, filter) pairs: balanced blocks of the
-        mix."""
+    def _upload(self, size: tuple[int, int], i: int, img: np.ndarray
+                ) -> Upload:
+        up = self.ctx.mix.get("upload")
+        if up is None:
+            return Upload(size, i, img, _data_url("image/png", png.encode(img)))
+        t = time.perf_counter()
+        written = jpeg.encode(img, up["quality"], up["subsampling"],
+                              up["exif"])
+        self.ctx.log(f"portbench: wrote a {img.shape[1]}x{img.shape[0]} JPEG "
+                     f"(quality {up['quality']}, {up['subsampling']}) of "
+                     f"{len(written.data)} bytes in "
+                     f"{time.perf_counter() - t:.3f} s")
+        return Upload(size, i, img, _data_url("image/jpeg", written.data),
+                      written)
+
+    def _plan(self, client: int) -> list[tuple[int, int]]:
+        """Client `client`'s (upload, template) pairs: balanced blocks of
+        the mix."""
         calls = schedule.calls(self.ctx.mix, self.ctx.config,
                                np.random.default_rng([self.ctx.seed, 3, client]))
-        index = {(size, i): u for u, (size, i, _, _) in enumerate(self.uploads)}
-        return [(index[(c.size, c.image)], c.filter)
+        index = {(up.size, up.index): u for u, up in enumerate(self.uploads)}
+        return [(index[(c.size, c.image)], c.template)
                 for c in (next(calls) for _ in range(4096))]
 
     def _start_clients(self) -> None:
@@ -307,21 +345,21 @@ class HttpEntry:
                                         stdout=subprocess.PIPE)
         hdr = {"host": "127.0.0.1", "port": self.server.port,
                "route": self.ctx.mix["route"],
-               "upload_bytes": [len(u[3]) for u in self.uploads],
+               "upload_bytes": [len(u.url) for u in self.uploads],
                "fields": self.fields, "plans": self.plans,
                "sample": int(self.ctx.mix["sample"]),
                "sample_seeds": [int(self.rng.integers(2**62))
                                 for _ in range(n)]}
         self.clients.stdin.write(json.dumps(hdr).encode() + b"\n")
         for u in self.uploads:
-            self.clients.stdin.write(u[3])
+            self.clients.stdin.write(u.url)
         self.clients.stdin.flush()
         if self.clients.stdout.readline().strip() != b"ready":
             raise RuntimeError("the clients did not start")
 
-    def _post(self, upload: int, filter_name: str) -> int:
-        body = json.dumps({**self.fields[filter_name],
-                           "image": self.uploads[upload][3].decode()}).encode()
+    def _post(self, upload: int, template: int) -> int:
+        body = json.dumps({**self.fields[template],
+                           "image": self.uploads[upload].url.decode()}).encode()
         req = urllib.request.Request(self.base + self.ctx.mix["route"], body,
                                      {"Content-Type": "application/json"})
         with urllib.request.urlopen(req, timeout=600) as resp:
@@ -329,14 +367,18 @@ class HttpEntry:
             return resp.status
 
     def _warm(self) -> None:
-        """Every filter on every upload size, `warm_repeats` rounds, the
-        filters of a round at once: each key's first request, its
-        capture, its replays."""
+        """Every template on every upload size, `warm_repeats` rounds, up
+        to `WARM_THREADS` requests at once: each key's first request, its
+        capture, its replays.  The runtime keeps the executables of its
+        last 8 keys (filter, level, shape, taps); a mix with more keys
+        than that builds, captures and evicts inside the window too, and
+        that churn is the deployment being measured, not a fault."""
         firsts = {}
-        for u, (size, _, _, _) in enumerate(self.uploads):
-            firsts.setdefault(size, u)
-        jobs = [(u, f) for u in firsts.values() for f in self.fields]
-        with ThreadPoolExecutor(len(jobs)) as pool:
+        for u, up in enumerate(self.uploads):
+            firsts.setdefault(up.size, u)
+        jobs = [(u, t) for u in firsts.values()
+                for t in range(len(self.fields))]
+        with ThreadPoolExecutor(min(len(jobs), WARM_THREADS)) as pool:
             for _ in range(int(self.ctx.mix.get("warm_repeats", 3))):
                 for status in pool.map(lambda j: self._post(*j), jobs):
                     if status != 200:
@@ -350,7 +392,9 @@ class HttpEntry:
         stats = self._get(ROUTE_STATS)
         return {"phase": stats["phase_ms"].get(f"POST {self.ctx.mix['route']}",
                                                {}),
-                "executables": stats["executables"]}
+                "executables": stats["executables"],
+                "decode_tiers": stats["decode_tiers"],
+                "encode_bands": stats["encode_bands"]}
 
     def window(self, t0: float, t1: float) -> Window:
         self.clients.stdin.write(f"{t0!r} {t1!r}\n".encode())
@@ -368,7 +412,7 @@ class HttpEntry:
         for sent, done, status, n, i in out["records"]:
             win.calls.append((sent, done, status == 200))
             plan = self.plans[n]
-            upload_bytes += len(self.uploads[plan[i % len(plan)][0]][3])
+            upload_bytes += len(self.uploads[plan[i % len(plan)][0]].url)
         self.kept = [(self.plans[n][i % len(self.plans[n])],
                       proc.stdout.read(size)) for n, i, size in out["kept"]]
         proc.stdout.close()
@@ -377,7 +421,8 @@ class HttpEntry:
         self.clients = None
         win.notes.append(f"requests {len(win.calls)}, failed "
                          f"{sum(not ok for _, _, ok in win.calls)}, upload bytes "
-                         f"{upload_bytes}")
+                         f"{upload_bytes}, the clients' peak resident set "
+                         f"{out['peak_rss_kib']} KiB")
         return win
 
     def release(self) -> None:
@@ -388,39 +433,82 @@ class HttpEntry:
     def check(self, cmp: Comparison) -> int:
         """Each kept reply: the original and every level the route
         promises (the configuration's `levels`); a level missing from a
-        reply counts as an unreadable answer."""
+        reply counts as an unreadable answer.
+
+        A PNG upload's original is held to the upload's pixels, and each
+        level to the reference filter of them.  A JPEG upload's is checked
+        in two stages: (a) the reply's original, the server's decode, is
+        held to the reference decode of what the writer wrote, within the
+        configuration's `jpeg_decode` tolerance; (b) each level is held to
+        the reference filter of that decoded original, under the
+        configuration's other numerics, so that the filters stay exact
+        whichever decoder the server runs.  A JPEG's original that cannot
+        be read, or that is the upload passed back, is an unreadable
+        answer, and its levels go unjudged."""
         dev = self.ctx.device
         promised = [int(v) for v in self.ctx.config["levels"]]
         want_cache: dict = {}
-        for (u, f), body in self.kept:
-            size, _, img, url = self.uploads[u]
+        reference_decodes: dict[int, torch.Tensor] = {}
+        for (u, t), body in self.kept:
+            up, fields = self.uploads[u], self.fields[t]
+            f = fields["filter"]
             try:
                 answer = json.loads(body)
-                original = answer["original_image"].encode()
+                original = answer["original_image"]
+                if not isinstance(original, str):
+                    raise TypeError("the original is not a string")
                 levels = {int(k.split("_")[1]): v["processed_image"]
                           for k, v in answer["results"].items()}
-            except (ValueError, KeyError, AttributeError, IndexError) as exc:
+            except (ValueError, KeyError, AttributeError, IndexError,
+                    TypeError) as exc:
                 cmp.unreadable(f"{f}: reply not read ({exc.__class__.__name__})")
                 continue
-            src = torch.from_numpy(img).to(dev)
-            if original == url:
-                cmp.add(src, src, "original", 0)
+            if up.written is None:
+                src = torch.from_numpy(up.image).to(dev)
+                if original.encode() == up.url:
+                    cmp.add(src, src, "original", 0)
+                else:
+                    self._add_png(cmp, original, src, "original", 0)
+                source = u
             else:
-                self._add_png(cmp, original.decode(), src, "original", 0)
+                if u not in reference_decodes:
+                    reference_decodes[u] = torch.from_numpy(
+                        jpeg.decode(up.written))
+                src = self._decoded(cmp, original, up, reference_decodes[u], f)
+                if src is None:
+                    continue
+                src, source = src.to(dev), original
             for level in promised:
                 if level not in levels:
                     cmp.unreadable(f"{f}: no level_{level} in the reply, "
                                    f"levels {sorted(levels)}")
             decoded: dict[str, torch.Tensor] = {}
             for level, url_out in sorted(levels.items()):
-                key = (u, f, level if f == "sobel" else 0)
+                key = (source, t, level if f == "sobel" else 0)
                 if key not in want_cache:
                     want_cache[key] = reference.apply(
-                        src, f, level, self.fields[f]["sigma"],
-                        self.fields[f]["radius"])
+                        src, f, level, fields["sigma"], fields["radius"])
                 self._add_png(cmp, url_out, want_cache[key], f, level,
                               decoded)
         return len(self.kept)
+
+    @staticmethod
+    def _decoded(cmp: Comparison, original: str, up: Upload,
+                 want: torch.Tensor, f: str) -> torch.Tensor | None:
+        """Stage (a): the server's decode of JPEG upload `up`, read from
+        the reply's original and held to the reference decode `want`; None
+        where it cannot be read."""
+        if original.encode() == up.url:
+            cmp.unreadable(f"{f}: the JPEG upload came back as the original, "
+                           "not the server's decode of it")
+            return None
+        try:
+            got = torch.from_numpy(_png_of_data_url(original))
+        except (ValueError, zlib.error) as exc:
+            cmp.unreadable(f"{f} original: {exc}")
+            return None
+        cmp.add_decode(got, want)
+        return got if tuple(got.shape) == tuple(want.shape) else None
 
     @staticmethod
     def _add_png(cmp: Comparison, url: str, want: torch.Tensor, f: str,

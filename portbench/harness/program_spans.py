@@ -166,11 +166,12 @@ def extra_metrics(cell_name: str, path: Path = METRICS_FILE) -> list:
 _load = spec.load
 
 
-def _load_with_extra(cell_name: str, root: Path = spec.ROOT) -> spec.Cell:
+def _load_with_extra(cell_name: str, root: Path = spec.ROOT,
+                     *overrides) -> spec.Cell:
     """The cell, its metrics of `program_spans.json` read in a traced run
     and in an untraced one too: spans need no device trace, and an
     untraced run shows them without the profiler's own cost."""
-    cell = _load(cell_name, root)
+    cell = _load(cell_name, root, *overrides)
     extra = extra_metrics(cell_name)
     cell.per_layer = cell.per_layer + extra
     cell.end_to_end = cell.end_to_end + extra

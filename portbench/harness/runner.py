@@ -45,9 +45,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     """The result of one run (the dict the last line prints).  `device`,
     `alter` and the overrides are for the tests, which run the harness on
     the CPU at small sizes with the program broken underneath."""
-    cell = spec.load(cell_name, root)
-    cell.mix.update(mix_overrides or {})
-    cell.config.update(config_overrides or {})
+    cell = spec.load(cell_name, root, mix_overrides, config_overrides)
     on_card = device == "cuda"
     if on_card:
         chip.require_cards(cell.chips)

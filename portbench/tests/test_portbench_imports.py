@@ -1,5 +1,5 @@
 """What the benchmark may import: never JAX or the JAX package, and in the
-reference nothing of the program."""
+reference nothing of the program and not Pillow."""
 
 from __future__ import annotations
 
@@ -43,6 +43,15 @@ def test_the_reference_and_the_inputs_import_nothing_of_the_program():
             imports = _imports(path)
             assert PORT not in imports and "portbench" not in imports - {
                 "portbench"} and not imports & FORBIDDEN, path
+
+
+def test_the_reference_decodes_and_encodes_without_pillow():
+    """The JPEG and PNG yardsticks are plain code: a decoder that Pillow
+    or the program shares would judge itself."""
+    paths = sorted((BENCH / "reference").rglob("*.py"))
+    assert BENCH / "reference" / "jpeg.py" in paths
+    for path in paths:
+        assert not _imports(path) & {"PIL", "Pillow"}, path
 
 
 def test_the_client_runs_on_the_standard_library_alone():

@@ -133,3 +133,18 @@ def test_a_cell_runs_correct_on_the_card():
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["correct"] and result["device"]["busy_s"] > 0
     assert 0 < result["metrics"]["kernels_roofline"]["value"] <= 100
+
+
+def test_a_run_with_the_span_recorder_takes_the_overrides():
+    """`run_spans.py`'s path: the recorder on, the cell loaded with its
+    metrics of `program_spans.json` and the overrides, the counters with
+    the recorder's totals."""
+    from portbench.harness import program_spans
+
+    try:
+        with program_spans.recording():
+            result = _run("lib_photo.api_repeat", seconds=0.3)
+    except program_spans.NoRecorder:
+        pytest.skip("the port has no span recorder")
+    assert result["correct"], result["checked"]
+    assert "exec.stage_ms_per_call" in result["metrics"]
